@@ -1,0 +1,108 @@
+"""Gaussian scene state: fixed-capacity parameter tensors with an alive count.
+
+Port of rain_tpu/model/gaussians.py (itself the counterpart of the
+reference GaussianModel, scene/gaussian_model.py:13-137). Parameters live
+in capacity-C tensors; the first ``n_alive`` rows are live and dead rows
+hold valid placeholders (identity quaternion etc.), so no NaN can come out
+of a masked row.
+
+Parameterization (identical to the reference):
+  xyz            [C, 3]   raw positions
+  features_dc    [C, 1, 3]  SH DC coefficients
+  features_rest  [C, K-1, 3] higher SH coefficients (K = (deg+1)^2)
+  scaling        [C, 3]   log-scales     (activation: exp)
+  rotation       [C, 4]   quaternions    (activation: L2 normalize)
+  opacity        [C, 1]   logits         (activation: sigmoid)
+
+The densification statistics of the JAX state (max_radii2d,
+xyz_gradient_accum, denom) and ``create_from_pcd`` (which needs the KNN
+init) come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from rain_tpu_torch import device as device_mod
+
+
+class GaussianParams(NamedTuple):
+    xyz: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    scaling: torch.Tensor
+    rotation: torch.Tensor
+    opacity: torch.Tensor
+
+
+class GaussianState(NamedTuple):
+    params: GaussianParams
+    n_alive: int
+
+    @property
+    def capacity(self) -> int:
+        return self.params.xyz.shape[0]
+
+
+def activate(params: GaussianParams):
+    """Raw → rendering quantities (gaussian_model.py:15-31,85-105)."""
+    scales = torch.exp(params.scaling)
+    norm = torch.sqrt(torch.sum(params.rotation * params.rotation, dim=-1,
+                                keepdim=True))
+    quats = params.rotation / norm
+    opacity = torch.sigmoid(params.opacity[:, 0])
+    shs = torch.cat([params.features_dc, params.features_rest], dim=1)
+    return scales, quats, opacity, shs
+
+
+def alive_mask(state: GaussianState) -> torch.Tensor:
+    return torch.arange(state.capacity,
+                        device=state.params.xyz.device) < state.n_alive
+
+
+def _dead_fill(capacity: int, sh_rest: int,
+               device: torch.device) -> GaussianParams:
+    """Placeholder values for dead slots (NaN-safe under all activations)."""
+    rot = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
+    rot[:, 0] = 1.0
+    return GaussianParams(
+        xyz=torch.zeros((capacity, 3), device=device),
+        features_dc=torch.zeros((capacity, 1, 3), device=device),
+        features_rest=torch.zeros((capacity, sh_rest, 3), device=device),
+        scaling=torch.full((capacity, 3), -10.0, device=device),
+        rotation=rot,
+        opacity=torch.full((capacity, 1), -10.0, device=device),
+    )
+
+
+def from_arrays(xyz, f_dc, f_rest, scaling, rotation, opacity,
+                capacity: int | None = None, device=None) -> GaussianState:
+    """Build a state from raw attribute arrays (e.g. a loaded PLY) on
+    ``device`` (default: the CUDA card)."""
+    dev = device_mod.resolve(device)
+    n = xyz.shape[0]
+    capacity = capacity or n
+    if n > capacity:
+        raise ValueError(f"{n} Gaussians do not fit a capacity of {capacity}")
+    params = _dead_fill(capacity, f_rest.shape[1], dev)
+    for dst, src in zip(params, (xyz, f_dc, f_rest, scaling, rotation,
+                                 opacity)):
+        dst[:n] = torch.from_numpy(np.array(src, np.float32)).to(dev)
+    return GaussianState(params=params, n_alive=n)
+
+
+def from_numpy(params: dict[str, np.ndarray], n_alive: int,
+               capacity: int | None = None, device=None) -> GaussianState:
+    """Carry a state over from numpy arrays keyed by the GaussianParams
+    field names (``np.asarray`` of each field of the JAX package's
+    GaussianParams). The first ``n_alive`` rows are taken; the capacity
+    defaults to the arrays' own."""
+    n_alive = int(n_alive)
+    rows = {k: np.asarray(params[k])[:n_alive] for k in GaussianParams._fields}
+    return from_arrays(
+        rows["xyz"], rows["features_dc"], rows["features_rest"],
+        rows["scaling"], rows["rotation"], rows["opacity"],
+        capacity=capacity or len(params["xyz"]), device=device)

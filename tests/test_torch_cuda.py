@@ -1,0 +1,83 @@
+"""Kernels against their plain versions on a CUDA card (skipped without).
+
+Run on a machine with a card: ``python -m pytest tests/test_torch_cuda.py``.
+chip_smoke.py makes the same checks at the main path's full shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.model import gaussians as gmod
+from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import tile_render
+from rain_tpu_torch.train import step
+
+torch.set_num_threads(1)
+
+W, H, M = 160, 112, 1 << 14
+GX, GY = (W + 15) // 16, (H + 15) // 16
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _state(device, n=2000, seed=0):
+    rng = np.random.default_rng(seed)
+    xyz = np.concatenate([rng.uniform(-2, 2, (n, 2)),
+                          rng.uniform(2, 8, (n, 1))], 1)
+    return gmod.from_arrays(
+        xyz, rng.normal(0, 0.5, (n, 1, 3)), rng.normal(0, 0.1, (n, 15, 3)),
+        rng.uniform(-4.5, -3, (n, 3)), rng.normal(size=(n, 4)),
+        rng.normal(0, 1.5, (n, 1)), device=device)
+
+
+def _camera(device):
+    return Camera(uid=0, image_name="t", R=np.eye(3), T=np.zeros(3),
+                  fovx=1.0, fovy=0.7, image=None, width=W,
+                  height=H).render_inputs(device)
+
+
+def test_kernels_match_plain_versions(cuda):
+    seen = {}
+    step.eval_render(_state(cuda), _camera(cuda), torch.zeros(3, device=cuda),
+                     0.3, width=W, height=H, sh_degree=3, max_instances=M,
+                     on_stage=seen.__setitem__)
+    d = seen["depth_sort"]
+    cols_p, keys_p = expand_ops.expand_instances_torch(
+        d.table, d.tiles, d.offs, d.rect_w, d.rect_base, grid_x=GX,
+        tile_offset=0, n_tiles=GX * GY, max_instances=M)
+    cols, keys = seen["expand_B1"]
+    assert torch.equal(cols, cols_p) and torch.equal(keys, keys_p)
+
+    start, end = seen["tile_ranges"]
+    tiles = seen["composite_B3"]
+    tiles_p = tile_render.composite_forward_torch(
+        seen["tile_sort_gather"], start, end, 0, GX)
+    torch.testing.assert_close(tiles, tiles_p, rtol=1e-5, atol=1e-6)
+    assert int(tiles[..., tile_render.CH_NCONTRIB].max()) > 0
+
+
+def test_eval_render_on_card_matches_cpu(cuda):
+    kw = dict(width=W, height=H, sh_degree=3, max_instances=M)
+    got = step.eval_render(_state(cuda), _camera(cuda),
+                           torch.zeros(3, device=cuda), 0.3, **kw)
+    want = step.eval_render(_state("cpu"), _camera("cpu"), torch.zeros(3),
+                            0.3, **kw)
+    for f in ("render", "final_t", "alpha"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                   rtol=1e-4, atol=3e-5)
+    assert int(got.num_instances) == int(want.num_instances) > 0
+    assert torch.equal(got.radii.cpu(), want.radii)
+
+
+def test_wrappers_reject_wrong_inputs(cuda):
+    pack = torch.zeros((16, 256), device=cuda)
+    starts = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        tile_render.composite_forward(pack, starts, starts, 0, 2)
