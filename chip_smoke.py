@@ -10,23 +10,40 @@ Phases, in order; any failure exits non-zero before the result lines:
    kernel under rain_tpu_torch/csrc with nvcc, timed.
 2. The garden-proxy 262k scene of bench.py (262,144 Gaussians, SH degree
    3 with random f_rest) is saved with save_ply_snapshot and loaded onto
-   the card with load_ply_snapshot. Each kernel's output in a frame of
-   eval_render (kept by its on_stage hook) is held against its plain
-   PyTorch version on the same inputs: B1 (expand_instances) at the main
-   path's shapes, bit for bit; B3 (composite_forward) on the main path's
-   frame and on a 256x256 view of 20k Gaussians, to rtol 1e-5 / atol 1e-6
-   with n_contrib exact up to 1e-4 of the pixels. The whole eval_render
-   on the card is held against the port's CPU path on a small scene, at
-   the CPU tests' tolerances.
-3. The main path at full width: eval_render from 5 poses at 1297x840
-   with max_instances=786,432. The kernels' launch counters are set to 0
-   just before and read just after; each kernel must have launched once
-   per frame. The output must be finite, not overflow, and pose 0 must
-   render as it did in phase 2.
-4. Timing: per frame (host clock), per stage of eval_render (CUDA events
-   from the on_stage hook), per kernel (median of CUDA-event times, beside
-   its plain version, the library call that computes the same function
-   where one exists, and its bound from the H100 SXM's published peaks).
+   the card with load_ply_snapshot. Each forward kernel's output in a
+   frame of eval_render (kept by its on_stage hook) is held against its
+   plain PyTorch version on the same inputs: B1 (expand_instances) at the
+   main path's shapes, bit for bit; B3 (composite_forward) on the main
+   path's frame and on a 256x256 view of 20k Gaussians, to rtol 1e-5 /
+   atol 1e-6 with n_contrib exact up to 1e-4 of the pixels. The whole
+   eval_render on the card is held against the port's CPU path on a small
+   scene, at the CPU tests' tolerances.
+3. The render path: eval_render from 5 poses at 1297x840 with
+   max_instances=786,432, its kernels' launch counters set to 0 just
+   before and read just after (one launch of B1 and B3 per frame). The
+   frames are finite, do not overflow, pose 0 renders as in phase 2, and
+   they are the ground truth of phase 4.
+4. The training main path, bench.py's 262k train tier: the scene is
+   perturbed (seeded xyz noise, an opacity and a colour shift) and
+   train_step takes 5 steps, one per pose, with the lrs of bench.py:79-80.
+   All four launch counters are set to 0 just before and read just after:
+   each kernel launched once per step. Loss and params are finite, no
+   step overflows, and the loss at pose 0 after the steps is below step
+   0's. Step 0 taken again from the same state gives the same params, Adam
+   moments and statistics bit for bit.
+5. The backward kernels against their plain versions, on the inputs the
+   training step gave them (its on_stage hook): B2 (reduce_instances) bit
+   for bit, and B4 (composite_backward) to max-abs error / max-abs value
+   < 1e-5 per gradient row, at the main path's full frame
+   and on the 256x256 view of 20k Gaussians. A training step on the card
+   is held against the port's CPU path on a small scene (loss to rtol
+   1e-5, Adam's first moment at the gradient bar 1e-4).
+6. Timing: per frame and per training step (host clock), per stage (CUDA
+   events from the on_stage hooks), the device's busy time, idle share and
+   launches (torch.profiler), peak memory, and per kernel (median of
+   CUDA-event times, beside its plain version, the library call that
+   computes the same function where one exists, and its bound from the
+   H100 SXM's published peaks), on the training step's inputs.
 
 It prints the nvidia-smi line, one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line; with --out it also writes every
@@ -47,8 +64,10 @@ import torch
 
 from rain_tpu_torch import _build
 from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc
@@ -64,6 +83,9 @@ SH_DEGREE = 3
 N_POSES = 5
 BG = (0.0, 0.0, 0.0)
 LOW_PASS = 0.3
+XYZ_LR = 1.6e-4                                              # bench.py:85
+OPT_LEAVES = {"feature_lr": 0.0025, "opacity_lr": 0.05,      # bench.py:79
+              "scaling_lr": 0.005, "rotation_lr": 0.001}
 # H100 SXM published peaks: HBM bytes/s, and f32 operations/s outside
 # the tensor cores. The published 67 TFLOP/s counts a fused multiply-add
 # as two operations; the kernels are built with -fmad=false, so each add
@@ -77,6 +99,12 @@ SPIN_CYCLES = 2_000_000
 # every evaluated pair; 1 - alpha, T·(1 - alpha), alpha·T, the four
 # weighted channel sums (2 each) and the alpha sum for a composited one
 OPS_EVAL, OPS_COMP = 14, 12
+# the backward compositor (B4): the same 14 to re-evaluate a pair; for a
+# composited one c·g (5), 1 - alpha, alpha·T, the running sum (2),
+# dL/dalpha (4), T (1), dL/dG and dL/dpower (2), the three moments (3),
+# the gradient terms (19), and the nine adds of its share of the pixel
+# sums
+OPS_BWD_COMP = 47
 
 
 def garden_proxy_state_arrays(seed=0):
@@ -96,6 +124,18 @@ def garden_proxy_state_arrays(seed=0):
         opacity=np.full((n, 1), -1.0, np.float32))
 
 
+def perturbed(arrays, seed=1):
+    """The scene the training steps start from: xyz noise (sigma 2 mm of a
+    6 m wide scene), opacity logits +1 and SH DC +0.3 on every Gaussian."""
+    rng = np.random.default_rng(seed)
+    out = dict(arrays)
+    out["xyz"] = (arrays["xyz"] +
+                  rng.normal(0, 2e-3, arrays["xyz"].shape)).astype(np.float32)
+    out["opacity"] = arrays["opacity"] + np.float32(1.0)
+    out["f_dc"] = arrays["f_dc"] + np.float32(0.3)
+    return out
+
+
 def pose(k, width=WIDTH, height=HEIGHT):
     """Pose k of a short sideways pan around bench.py's camera."""
     yaw = 0.04 * (k - N_POSES // 2)
@@ -113,31 +153,57 @@ def _event():
     return e
 
 
+def stage_hook(seen, events=None):
+    """An on_stage hook that keeps each stage's result in `seen` and, with
+    `events` (a list), appends a CUDA event after each stage."""
+    def on_stage(name, value):
+        seen[name] = value
+        if events is not None:
+            events.append(_event())
+    return on_stage
+
+
 def render_frame(state, cam, width, height, events=None):
     """eval_render of one view with an on_stage hook. Returns the output
     and {stage: result} (see ops.render.STAGES). With `events` (a list),
     appends a CUDA event before the frame and one after each stage."""
     bg = torch.tensor(BG, device=state.params.xyz.device)
     seen = {}
-
-    def on_stage(name, value):
-        seen[name] = value
-        if events is not None:
-            events.append(_event())
-
     if events is not None:
         events.append(_event())
     out = step.eval_render(state, cam, bg, LOW_PASS, width=width,
                            height=height, sh_degree=SH_DEGREE,
-                           max_instances=MAX_INSTANCES, on_stage=on_stage)
+                           max_instances=MAX_INSTANCES,
+                           on_stage=stage_hook(seen, events))
     if tuple(seen) != render_ops.STAGES:
         raise AssertionError(f"stages seen: {tuple(seen)}")
     return out, seen
 
 
+TRAIN_STAGES = (render_ops.STAGES + ("loss",) + render_ops.BACKWARD_STAGES +
+                step.TRAIN_STAGES[1:])
+
+
+def train(state, opt, cam, gt, width, height, events=None,
+          max_instances=MAX_INSTANCES):
+    """One train_step with an on_stage hook. Returns (state, opt, aux) and
+    {stage: result}; with `events`, as render_frame."""
+    seen = {}
+    if events is not None:
+        events.append(_event())
+    out = step.train_step(
+        state, opt, cam, gt, torch.tensor(BG, device=gt.device), LOW_PASS,
+        XYZ_LR, width=width, height=height, sh_degree=SH_DEGREE,
+        max_instances=max_instances, opt_cfg_leaves=OPT_LEAVES,
+        on_stage=stage_hook(seen, events))
+    if tuple(seen) != TRAIN_STAGES:
+        raise AssertionError(f"training stages seen: {tuple(seen)}")
+    return out, seen
+
+
 def kernel_inputs(seen, width, height):
-    """The inputs that kernels B1 and B3 were given in a frame: B1's
-    (args, kwargs) and B3's args."""
+    """The inputs that kernels B1 and B3 were given in a frame or step:
+    B1's (args, kwargs) and B3's args."""
     grid_x = (width + 15) // 16
     n_tiles = grid_x * ((height + 15) // 16)
     d = seen["depth_sort"]
@@ -148,25 +214,28 @@ def kernel_inputs(seen, width, height):
             (seen["tile_sort_gather"], start, end, 0, grid_x))
 
 
-def device_profile(render_once, frames=3):
-    """torch.profiler over `frames` renders: per frame, the device's busy
-    time (the sum of its kernels' and copies' times; one stream, so they do
-    not overlap), the number of device operations launched and the
-    largest of them by time."""
+def device_profile(run_once, reps=3):
+    """torch.profiler over `reps` calls: per call, the device's busy time
+    (the sum of its kernels' and copies' times; one stream, so they do not
+    overlap), the number of device operations launched and the largest of
+    them by time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            render_once()
+        for _ in range(reps):
+            run_once()
         torch.cuda.synchronize()
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3 / reps
+    if busy <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
     return {
-        "busy_ms": sum(e.self_device_time_total for e in ops) / 1e3 / frames,
-        "launches": sum(e.count for e in ops) / frames,
-        "top": [[e.key[:100], e.self_device_time_total / 1e3 / frames,
-                 e.count / frames] for e in ops[:12]],
+        "busy_ms": busy,
+        "launches": sum(e.count for e in ops) / reps,
+        "top": [[e.key[:100], e.self_device_time_total / 1e3 / reps,
+                 e.count / reps] for e in ops[:12]],
     }
 
 
@@ -179,7 +248,7 @@ def device_ms(fn, reps=20):
     with the host's launch gap, which exceeds a short kernel's run time.
     The plain versions launch more than the spin covers and are timed with
     their host gaps."""
-    for _ in range(3):
+    for _ in range(2 if reps < 5 else 3):
         fn()
     times = []
     for _ in range(reps):
@@ -191,6 +260,34 @@ def device_ms(fn, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def host_ms(fn, reps):
+    """Host-clock times in ms of `reps` calls of `fn`, each ending in a
+    synchronize: (median, [q25, q75], max, all)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return (float(np.median(times)),
+            [float(np.percentile(times, q)) for q in (25, 75)],
+            float(np.max(times)), times)
+
+
+def stage_split(run, stages, reps=10):
+    """Median over `reps` runs of the CUDA-event interval of each stage;
+    `run(events)` appends one event before the run and one after each
+    stage."""
+    split = {s: [] for s in stages}
+    for _ in range(reps):
+        events = []
+        run(events)
+        torch.cuda.synchronize()
+        for s, a, b in zip(stages, events, events[1:]):
+            split[s].append(a.elapsed_time(b))
+    return {s: float(np.median(v)) for s, v in split.items()}
 
 
 def compare_tiles(got, want, what):
@@ -207,6 +304,64 @@ def compare_tiles(got, want, what):
     if flips > 1e-4 * n_px:
         raise AssertionError(f"{what}: n_contrib differs at {flips} pixels")
     return float((got[..., :6] - want[..., :6]).abs().max())
+
+
+def compare_backward(seen, what):
+    """B2 and B4 of one training step against their plain versions on the
+    inputs the step gave them. B2 sums each segment from 0.0 in the plain
+    version's order, so the two are equal bit for bit; the gradients of a
+    loss averaged over millions of pixels are small, so no absolute bar
+    would do (each row's max |value| is printed). B4 follows the plain
+    version's arithmetic and reduction tree; max-abs error / max-abs value
+    < 1e-5 per gradient row, for any expf that rounds an ulp apart.
+    Returns (B2's, B4's) max abs error and B2's max |value| per row."""
+    d_rank, exc, tiles, d_depth = seen["reduce_B2"]
+    want = expand_ops.reduce_instances_torch(d_rank, exc, tiles)
+    scale = want.abs().amax(dim=1).tolist()
+    print(f"B2 {what}: max |value| per row {[f'{v:.3g}' for v in scale]}")
+    if not torch.equal(d_depth, want):
+        raise AssertionError(f"B2 {what} differs from its plain version")
+    b2_err = float((d_depth - want).abs().max())
+    args, d_pack = seen["composite_bwd_B4"]
+    want = tile_render.composite_backward_torch(*args)
+    err = (d_pack - want).abs()
+    rows = tile_render.GRAD_ROWS
+    rel = [float(err[r].max() / want[r].abs().max().clamp(min=1e-30))
+           for r in range(rows)]
+    print(f"B2 {what}: bitwise equal; B4 {what}: max-abs error / max-abs "
+          f"value per row {[f'{x:.2g}' for x in rel]}")
+    if max(rel) >= 1e-5 or float(err[rows:].max()) != 0.0:
+        raise AssertionError(f"B4 {what} differs from its plain version")
+    return b2_err, float(err.max()), scale
+
+
+def counters():
+    return {"expand_instances": expand_ops.expand_instances,
+            "composite_forward": tile_render.composite_forward,
+            "composite_backward": tile_render.composite_backward,
+            "reduce_instances": expand_ops.reduce_instances}
+
+
+def reset_counts():
+    for f in counters().values():
+        f.launches = 0
+
+
+def read_counts():
+    return {k: f.launches for k, f in counters().items()}
+
+
+def same_bits(a, b):
+    """(params, AdamState, stats) tuples are equal bit for bit."""
+    (pa, oa, sa), (pb, ob, sb) = a, b
+    return all(torch.equal(x, y) for x, y in zip(
+        list(pa) + list(oa.mu) + list(oa.nu) + list(sa),
+        list(pb) + list(ob.mu) + list(ob.nu) + list(sb)))
+
+
+def snapshot(state, opt):
+    return (state.params, opt,
+            [getattr(state, k) for k in gmod.STAT_FIELDS])
 
 
 def main(out: Path | None = None):
@@ -230,18 +385,17 @@ def main(out: Path | None = None):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if len(list(_build.CSRC.glob("*.cu"))) != 4:
+        raise AssertionError("expected four kernel sources")
 
-    # --- 2. the scene, and each kernel against its plain version ----------
-    # The kernels are checked on the inputs the main path gave them: the
-    # warm-up frame of pose 0 of the PLY-loaded scene, and the same frame
-    # at 256x256 with 20k Gaussians, where the plain compositor is quick.
+    # --- 2. the scene, and each forward kernel against its plain version -
     arrays = garden_proxy_state_arrays()
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         path = Path(tmp) / "point_cloud.ply"
         checkpoint.save_ply_snapshot(
             path, gmod.from_arrays(**arrays, device=DEV))
         state = checkpoint.load_ply_snapshot(path)
-    if state.params.xyz.device.type != "cuda" or state.n_alive != N_GAUSS:
+    if state.params.xyz.device.type != DEV.type or state.n_alive != N_GAUSS:
         raise AssertionError("load_ply_snapshot did not load onto the card")
     cams = [pose(k).render_inputs() for k in range(N_POSES)]
     first, seen = render_frame(state, cams[0], WIDTH, HEIGHT)
@@ -256,11 +410,12 @@ def main(out: Path | None = None):
     b3_err = compare_tiles(seen["composite_B3"],
                            tile_render.composite_forward_torch(*b3_args),
                            f"B3 {WIDTH}x{HEIGHT}")
+    del seen, b1_args, b3_args, cols_k, keys_k, cols_p, keys_p
 
-    crop_state = gmod.from_arrays(
-        **{k: v[:20_000] for k, v in arrays.items()}, device=DEV)
-    _, crop = render_frame(crop_state, pose(0, 256, 256).render_inputs(DEV),
-                           256, 256)
+    crop_arrays = {k: v[:20_000] for k, v in arrays.items()}
+    crop_state = gmod.from_arrays(**crop_arrays, device=DEV)
+    crop_cam = pose(0, 256, 256).render_inputs(DEV)
+    crop_out, crop = render_frame(crop_state, crop_cam, 256, 256)
     b3_err = max(b3_err, compare_tiles(
         crop["composite_B3"], tile_render.composite_forward_torch(
             *kernel_inputs(crop, 256, 256)[1]),
@@ -291,73 +446,187 @@ def main(out: Path | None = None):
                              f"at {flips} pixels")
     print("eval_render on the card matches the CPU path (160x112, 3k)")
 
-    # --- 3. main path -----------------------------------------------------
+    # --- 3. the render path -----------------------------------------------
     bg = torch.tensor(BG, device=DEV)
     kw = dict(width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
               max_instances=MAX_INSTANCES)
     torch.cuda.synchronize()
-    expand_ops.expand_instances.launches = 0
-    tile_render.composite_forward.launches = 0
+    reset_counts()
     outs, frame_ms = [], []
     for cam in cams:
         t = time.perf_counter()
         outs.append(step.eval_render(state, cam, bg, LOW_PASS, **kw))
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t) * 1e3)
-    launches = {"expand_instances": expand_ops.expand_instances.launches,
-                "composite_forward": tile_render.composite_forward.launches}
-    print(f"main path launches: {launches}")
-    if any(v != N_POSES for v in launches.values()):
-        raise AssertionError(f"expected {N_POSES} launches of each kernel")
+    render_launches = read_counts()
+    print(f"render path launches: {render_launches}")
+    if render_launches != {"expand_instances": N_POSES,
+                           "composite_forward": N_POSES,
+                           "composite_backward": 0, "reduce_instances": 0}:
+        raise AssertionError(f"expected {N_POSES} launches of B1 and B3")
     n_inst = [int(o.num_instances) for o in outs]
     for o in outs:
         if o.render.shape != (3, HEIGHT, WIDTH) or \
                 not bool(torch.isfinite(o.render).all()) or \
                 not bool(torch.isfinite(o.depth).all()):
-            raise AssertionError("main path output is not finite")
+            raise AssertionError("render path output is not finite")
         if bool(o.overflow) or int(o.num_instances) <= 0:
             raise AssertionError(f"overflow or no instances: {n_inst}")
     if not torch.equal(first.render, outs[0].render):
         raise AssertionError("pose 0 renders differently on a second call")
-    print(f"main path: {N_POSES} frames, num_instances {n_inst}, "
+    print(f"render path: {N_POSES} frames, num_instances {n_inst}, "
           f"median frame {np.median(frame_ms):.3f} ms")
+    gts = [o.render for o in outs]
+    del outs, first
 
-    # --- 4. timing --------------------------------------------------------
-    split = {s: [] for s in render_ops.STAGES}
-    for _ in range(10):
-        events = []
-        render_frame(state, cams[0], WIDTH, HEIGHT, events)
-        torch.cuda.synchronize()
-        for s, a, b in zip(render_ops.STAGES, events, events[1:]):
-            split[s].append(a.elapsed_time(b))
-    stages_ms = {s: float(np.median(v)) for s, v in split.items()}
-    frame_loop = []
-    for _ in range(20):
+    # --- 4. the training main path ----------------------------------------
+    p_arrays = perturbed(arrays)
+    state0 = gmod.from_arrays(**p_arrays, device=DEV)
+    opt0 = adam_mod.init(state0.params)
+    torch.cuda.synchronize()
+    reset_counts()
+    s, o = state0, opt0
+    auxes, step_ms, seen0, first_step = [], [], None, None
+    for k in range(N_POSES):
         t = time.perf_counter()
-        step.eval_render(state, cams[0], bg, LOW_PASS, **kw)
+        (s, o, aux), seen = train(s, o, cams[k], gts[k], WIDTH, HEIGHT)
         torch.cuda.synchronize()
-        frame_loop.append((time.perf_counter() - t) * 1e3)
-    # the frame's own peak, above the scene and the inputs kept for timing
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        auxes.append(aux)
+        if k == 0:
+            seen0, first_step = seen, snapshot(s, o)
+    train_launches = read_counts()
+    print(f"training path launches: {train_launches}")
+    if any(v != N_POSES for v in train_launches.values()):
+        raise AssertionError(f"expected {N_POSES} launches of each kernel")
+    losses = [float(a.loss) for a in auxes]
+    n_inst_train = [int(a.num_instances) for a in auxes]
+    if not all(math.isfinite(v) for v in losses) or \
+            any(bool(a.instance_overflow) for a in auxes):
+        raise AssertionError(f"training: losses {losses}, instances "
+                             f"{n_inst_train}")
+    if not all(bool(torch.isfinite(p).all()) for p in s.params):
+        raise AssertionError("training: params are not finite")
+    final = s
+    loss0_after = float(loss_ops.training_loss(
+        step.eval_render(final, cams[0], bg, LOW_PASS, **kw).render,
+        gts[0])[0])
+    print(f"training: {N_POSES} steps, losses {losses}, pose 0 loss "
+          f"{losses[0]:.6f} -> {loss0_after:.6f}, num_instances "
+          f"{n_inst_train}, median step {np.median(step_ms):.3f} ms")
+    if not loss0_after < losses[0]:
+        raise AssertionError("the loss at pose 0 did not go down")
+    (s1, o1, _), _ = train(state0, opt0, cams[0], gts[0], WIDTH, HEIGHT)
+    if not same_bits(first_step, snapshot(s1, o1)):
+        raise AssertionError("step 0 taken again differs: not bitwise "
+                             "reproducible")
+    print("training: step 0 taken again is bitwise identical")
+    del s1, o1
+
+    # --- 5. backward kernels against their plain versions -----------------
+    b2_err, b4_err, b2_scale = compare_backward(seen0, f"{WIDTH}x{HEIGHT}")
+    crop_state = gmod.from_arrays(**perturbed(crop_arrays), device=DEV)
+    _, crop_seen = train(crop_state, adam_mod.init(crop_state.params),
+                         crop_cam, crop_out.render, 256, 256)
+    errs = compare_backward(crop_seen, "256x256, 20k Gaussians")
+    b2_err, b4_err = max(b2_err, errs[0]), max(b4_err, errs[1])
+    del crop_seen, crop_state
+
+    # anisotropic, so that the rotations take a gradient too
+    rng = np.random.default_rng(2)
+    small_p = dict(perturbed(small),
+                   scaling=rng.uniform(-5.0, -3.5, (3000, 3)),
+                   rotation=rng.normal(size=(3000, 4)))
+    gt_small = torch.from_numpy(
+        rng.uniform(0, 1, (3, 112, 160)).astype(np.float32))
+    steps_small = []
+    for dev in (DEV, torch.device("cpu")):
+        st = gmod.from_arrays(**small_p, device=dev)
+        steps_small.append(step.train_step(
+            st, adam_mod.init(st.params), pose(1, 160, 112).render_inputs(dev),
+            gt_small.to(dev), torch.tensor(BG, device=dev), LOW_PASS, XYZ_LR,
+            width=160, height=112, sh_degree=SH_DEGREE,
+            max_instances=1 << 15, opt_cfg_leaves=OPT_LEAVES))
+    (sc, oc, ac), (sh, oh, ah) = steps_small
+    torch.testing.assert_close(ac.loss.cpu(), ah.loss, rtol=1e-5, atol=0.0)
+    if int(ac.num_instances) != int(ah.num_instances):
+        raise AssertionError("train_step card vs CPU: num_instances differs")
+    for name, mc, mh in zip(gmod.GaussianParams._fields, oc.mu, oh.mu):
+        err = float((mc.cpu() - mh).abs().max())
+        if not err <= 1e-4 * float(mh.abs().max()):
+            raise AssertionError(f"train_step card vs CPU: Adam mu {name} "
+                                 f"off by {err:.3g}")
+    print("train_step on the card matches the CPU path (160x112, 3k)")
+    del steps_small, sc, oc, sh, oh
+
+    # --- 6. timing --------------------------------------------------------
+    stages_ms = stage_split(
+        lambda ev: render_frame(state, cams[0], WIDTH, HEIGHT, ev),
+        render_ops.STAGES)
+    frame = host_ms(lambda: step.eval_render(state, cams[0], bg, LOW_PASS,
+                                             **kw), 20)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     step.eval_render(state, cams[0], bg, LOW_PASS, **kw)
     peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
     prof = device_profile(
         lambda: step.eval_render(state, cams[0], bg, LOW_PASS, **kw))
-    if prof["busy_ms"] <= 0.0:
-        raise AssertionError("the profiler recorded no device time")
+    del state
 
+    ts = {"s": final, "o": o, "k": 0}
+
+    def one_step(events=None):
+        k = ts["k"] % N_POSES
+        (ts["s"], ts["o"], _), _ = train(ts["s"], ts["o"], cams[k], gts[k],
+                                         WIDTH, HEIGHT, events)
+        ts["k"] += 1
+
+    train_stages_ms = stage_split(one_step, TRAIN_STAGES)
+    steps_host = host_ms(one_step, 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    one_step()
+    train_peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
+    train_prof = device_profile(one_step)
+    fwd = sum(train_stages_ms[s] for s in render_ops.STAGES)
+    train_split = {
+        "forward": fwd, "loss": train_stages_ms["loss"],
+        "backward": sum(train_stages_ms[s] for s in
+                        render_ops.BACKWARD_STAGES + ("grads",)),
+        "densify_stats": train_stages_ms["densify_stats"],
+        "adam": train_stages_ms["adam"]}
+
+    # kernels, on the inputs of training step 0
+    b1_args, b3_args = kernel_inputs(seen0, WIDTH, HEIGHT)
     d_args, d_kw = b1_args
     n, m = d_args[0].shape[1], MAX_INSTANCES
     total = int(d_args[2][-1])
+    live = min(total, m)
     b1_bytes = (10 * 4 + 4 + 8 + 4 + 4) * n + (10 * 4 + 8) * m
     n_eval, n_comp = tile_render.composite_work(*b3_args)
-    live = min(total, m)
     n_tiles = b3_args[1].shape[0]
     b3_bytes = 10 * 4 * live + 2 * 4 * n_tiles + n_tiles * 256 * 8 * 4
     b3_ops = OPS_EVAL * n_eval + OPS_COMP * n_comp
-    b3_bound = max(b3_bytes / PEAK_BYTES_S,
-                   b3_ops / PEAK_F32_NOFMA_OPS_S) * 1e3
+    b4_args = seen0["composite_bwd_B4"][0]
+    d_rank, exc, tiles_n, _ = seen0["reduce_B2"]
+    # B4 re-evaluates each pixel's pairs up to its n_contrib and
+    # differentiates the composited ones (the forward's)
+    b4_eval = int(b4_args[5][..., tile_render.CH_NCONTRIB].sum())
+    b4_ops = OPS_EVAL * b4_eval + OPS_BWD_COMP * n_comp
+    rows = tile_render.GRAD_ROWS
+    b4_bytes = (2 * rows * 4 * live + 4 * n_tiles +
+                2 * n_tiles * 256 * 8 * 4)
+    b2_bytes = rows * 4 * live + (8 + 4) * n + rows * 4 * n
+    b2_ops = rows * live
+    seg_lengths = tiles_n.to(torch.int64).expand(rows, n).contiguous()
+    seg_data = d_rank[:, :live].contiguous()
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_NOFMA_OPS_S
+        return max(t_bytes, t_ops) * 1e3, \
+            "operations" if t_ops > t_bytes else "bytes"
+
     calls = {
         "expand_instances": lambda: expand_ops.expand_instances(
             *d_args, **d_kw),
@@ -368,59 +637,96 @@ def main(out: Path | None = None):
         "composite_forward": lambda: tile_render.composite_forward(*b3_args),
         "composite_forward_torch":
             lambda: tile_render.composite_forward_torch(*b3_args),
+        "composite_backward": lambda: tile_render.composite_backward(
+            *b4_args),
+        "composite_backward_torch":
+            lambda: tile_render.composite_backward_torch(*b4_args),
+        "reduce_instances": lambda: expand_ops.reduce_instances(
+            d_rank, exc, tiles_n),
+        "reduce_instances_torch": lambda: expand_ops.reduce_instances_torch(
+            d_rank, exc, tiles_n),
+        "segment_reduce": lambda: torch.segment_reduce(
+            seg_data, "sum", lengths=seg_lengths, axis=1),
     }
-    plain_reps = {"composite_forward_torch": 2}
+    plain_reps = {"composite_forward_torch": 2, "composite_backward_torch": 2}
     dev_ms = {k: device_ms(f, reps=plain_reps.get(k, 20))
               for k, f in calls.items()}
-    kernels = [
-        {"name": "expand_instances", "route": "cuda",
-         "source": "rain_tpu_torch/csrc/expand.cu",
-         "replaces": "rain_tpu/ops/expand.py:49",
-         "launches": launches["expand_instances"], "max_abs_err": b1_err,
-         "ms": dev_ms["expand_instances"],
-         "plain_ms": dev_ms["expand_instances_torch"],
-         "bound_ms": b1_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-         "library_ms": dev_ms["repeat_interleave"]},
-        {"name": "composite_forward", "route": "cuda",
-         "source": "rain_tpu_torch/csrc/tile_render_fwd.cu",
-         "replaces": "rain_tpu/ops/tile_render.py:212",
-         "launches": launches["composite_forward"], "max_abs_err": b3_err,
-         "ms": dev_ms["composite_forward"],
-         "plain_ms": dev_ms["composite_forward_torch"],
-         "bound_ms": b3_bound,
-         "bound_by": "operations" if b3_ops / PEAK_F32_NOFMA_OPS_S >
-         b3_bytes / PEAK_BYTES_S else "bytes",
-         "library_ms": None},
+    launches = train_launches
+    rows = [
+        ("expand_instances", "rain_tpu_torch/csrc/expand.cu",
+         "rain_tpu/ops/expand.py:49", b1_err, "expand_instances_torch",
+         (b1_bytes, 0), "repeat_interleave"),
+        ("composite_forward", "rain_tpu_torch/csrc/tile_render_fwd.cu",
+         "rain_tpu/ops/tile_render.py:212", b3_err, "composite_forward_torch",
+         (b3_bytes, b3_ops), None),
+        ("composite_backward", "rain_tpu_torch/csrc/tile_render_bwd.cu",
+         "rain_tpu/ops/tile_render.py:279", b4_err,
+         "composite_backward_torch", (b4_bytes, b4_ops), None),
+        ("reduce_instances", "rain_tpu_torch/csrc/reduce.cu",
+         "rain_tpu/ops/expand.py:145", b2_err, "reduce_instances_torch",
+         (b2_bytes, b2_ops), "segment_reduce"),
     ]
+    kernels = []
+    for name, source, replaces, err, plain, work, library in rows:
+        bound_ms, bound_by = bound(*work)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": dev_ms[name],
+            "plain_ms": dev_ms[plain], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": dev_ms[library] if library else None})
     record = {
         "card": card, "build_s": build_s,
-        "frame_ms_main_path": frame_ms,
-        "frame_ms_median": float(np.median(frame_loop)),
-        "frame_ms_quartiles": [float(np.percentile(frame_loop, q))
-                               for q in (25, 75)],
-        "frame_ms_max": float(np.max(frame_loop)),
-        "device_busy_ms": prof["busy_ms"],
-        "device_idle_share": 1.0 - prof["busy_ms"] /
-        float(np.median(frame_loop)),
-        "device_launches_per_frame": prof["launches"],
-        "device_top": prof["top"],
-        "peak_mib_per_frame": peak_mib,
-        "stages_ms": stages_ms,
-        "stages_sum_ms": float(sum(stages_ms.values())),
-        "num_instances": n_inst,
-        "b1": {"n": n, "m": m, "total": total, "bytes": b1_bytes},
-        "b3": {"n_tiles": n_tiles, "pairs_evaluated": n_eval,
-               "pairs_composited": n_comp, "ops": b3_ops,
-               "bytes": b3_bytes},
+        "render": {
+            "frame_ms_main_path": frame_ms,
+            "frame_ms_median": frame[0], "frame_ms_quartiles": frame[1],
+            "frame_ms_max": frame[2],
+            "device_busy_ms": prof["busy_ms"],
+            "device_idle_share": 1.0 - prof["busy_ms"] / frame[0],
+            "device_launches_per_frame": prof["launches"],
+            "device_top": prof["top"],
+            "peak_mib_per_frame": peak_mib,
+            "stages_ms": stages_ms,
+            "stages_sum_ms": float(sum(stages_ms.values())),
+            "num_instances": n_inst, "launches": render_launches},
+        "train": {
+            "losses": losses, "loss_pose0_after": loss0_after,
+            "num_instances": n_inst_train,
+            "step_ms_main_path": step_ms,
+            "step_ms_median": steps_host[0],
+            "step_ms_quartiles": steps_host[1],
+            "step_ms_max": steps_host[2], "step_ms_all": steps_host[3],
+            "device_busy_ms": train_prof["busy_ms"],
+            "device_idle_share": 1.0 - train_prof["busy_ms"] / steps_host[0],
+            "device_launches_per_step": train_prof["launches"],
+            "device_top": train_prof["top"],
+            "peak_mib_per_step": train_peak_mib,
+            "stages_ms": train_stages_ms,
+            "split_ms": train_split,
+            "stages_sum_ms": float(sum(train_stages_ms.values())),
+            "launches": train_launches},
+        "work": {
+            "n": n, "m": m, "total": total, "n_tiles": n_tiles,
+            "b1_bytes": b1_bytes, "b3_pairs_evaluated": n_eval,
+            "pairs_composited": n_comp, "b3_ops": b3_ops,
+            "b3_bytes": b3_bytes, "b4_pairs_evaluated": b4_eval,
+            "b4_ops": b4_ops, "b4_bytes": b4_bytes, "b2_bytes": b2_bytes,
+            "b2_max_abs_per_row": b2_scale},
+        "dev_ms": dev_ms,
         "kernels": kernels,
     }
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))
-    print(json.dumps({k: record[k] for k in (
+    print(json.dumps({k: record["train"][k] for k in (
+        "step_ms_median", "step_ms_quartiles", "step_ms_max",
+        "device_busy_ms", "device_idle_share", "device_launches_per_step",
+        "peak_mib_per_step", "split_ms", "stages_ms")}))
+    print(json.dumps({k: record["render"][k] for k in (
         "frame_ms_median", "device_busy_ms", "device_idle_share",
-        "device_launches_per_frame", "peak_mib_per_frame", "stages_ms",
-        "stages_sum_ms", "b3")}))
+        "device_launches_per_frame", "peak_mib_per_frame", "stages_ms")}))
+    print(json.dumps(record["work"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
-"""rain-tpu in PyTorch and CUDA: the forward render of a trained scene.
+"""rain-tpu in PyTorch and CUDA: the training step and the render.
 
 A port of the JAX package ``rain_tpu`` (which stays beside it as the
 reference) to PyTorch on an NVIDIA H100. Its layout mirrors the
 reference's, module by module:
 
   data/    — camera math and PLY interchange (byte-compatible files).
-  model/   — the fixed-capacity Gaussian state and its activations.
+  model/   — the fixed-capacity Gaussian state and its activations, Adam,
+             the densification statistics.
   ops/     — preprocess (projection, SH), tile binning with the instance
-             expansion kernel, the forward tile compositor kernel, image
-             assembly.
-  train/   — ``eval_render`` and PLY snapshots.
+             expansion and reduction kernels, the tile compositor's
+             forward and backward kernels, image assembly, the losses.
+  train/   — ``train_step``, ``eval_render`` and PLY snapshots.
   csrc/    — the hand-written CUDA C++ kernels (sm_90a), built by
              ``_build`` with nvcc at first use.
 

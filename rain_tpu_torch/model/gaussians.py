@@ -14,9 +14,10 @@ Parameterization (identical to the reference):
   rotation       [C, 4]   quaternions    (activation: L2 normalize)
   opacity        [C, 1]   logits         (activation: sigmoid)
 
-The densification statistics of the JAX state (max_radii2d,
-xyz_gradient_accum, denom) and ``create_from_pcd`` (which needs the KNN
-init) come with the training slice.
+The state also carries the densification statistics of the JAX state
+(max_radii2d, xyz_gradient_accum, denom; gaussian_model.py:137-141),
+zeros at construction. ``create_from_pcd`` (which needs the KNN init)
+comes with the Trainer loop.
 """
 
 from __future__ import annotations
@@ -41,10 +42,17 @@ class GaussianParams(NamedTuple):
 class GaussianState(NamedTuple):
     params: GaussianParams
     n_alive: int
+    max_radii2d: torch.Tensor         # [C] f32
+    xyz_gradient_accum: torch.Tensor  # [C] f32
+    denom: torch.Tensor               # [C] f32
 
     @property
     def capacity(self) -> int:
         return self.params.xyz.shape[0]
+
+
+# The densification statistics of GaussianState, each [C] f32.
+STAT_FIELDS = ("max_radii2d", "xyz_gradient_accum", "denom")
 
 
 def activate(params: GaussianParams):
@@ -91,18 +99,27 @@ def from_arrays(xyz, f_dc, f_rest, scaling, rotation, opacity,
     for dst, src in zip(params, (xyz, f_dc, f_rest, scaling, rotation,
                                  opacity)):
         dst[:n] = torch.from_numpy(np.array(src, np.float32)).to(dev)
-    return GaussianState(params=params, n_alive=n)
+    return GaussianState(params=params, n_alive=n,
+                         **{k: torch.zeros(capacity, device=dev)
+                            for k in STAT_FIELDS})
 
 
 def from_numpy(params: dict[str, np.ndarray], n_alive: int,
-               capacity: int | None = None, device=None) -> GaussianState:
+               capacity: int | None = None, device=None,
+               stats: dict[str, np.ndarray] | None = None) -> GaussianState:
     """Carry a state over from numpy arrays keyed by the GaussianParams
     field names (``np.asarray`` of each field of the JAX package's
     GaussianParams). The first ``n_alive`` rows are taken; the capacity
-    defaults to the arrays' own."""
+    defaults to the arrays' own. ``stats``, keyed by STAT_FIELDS (the JAX
+    GaussianState's fields of those names), carries the densification
+    statistics over too; without it they are zeros."""
     n_alive = int(n_alive)
     rows = {k: np.asarray(params[k])[:n_alive] for k in GaussianParams._fields}
-    return from_arrays(
+    state = from_arrays(
         rows["xyz"], rows["features_dc"], rows["features_rest"],
         rows["scaling"], rows["rotation"], rows["opacity"],
         capacity=capacity or len(params["xyz"]), device=device)
+    for k, v in (stats or {}).items():
+        getattr(state, k)[:n_alive] = torch.from_numpy(
+            np.array(v, np.float32)[:n_alive]).to(state.denom.device)
+    return state

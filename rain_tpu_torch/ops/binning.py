@@ -22,23 +22,25 @@ and drops the TPU's workarounds:
 Shapes are static with capacity ``max_instances``. When the true instance
 count exceeds it the farthest instances are dropped and ``overflow`` is
 set, as in the reference.
+
+``sorted_pack`` is differentiable in its attribute table (the VJP of
+rain_tpu/ops/binning.py:_sorted_pack_bwd): the pack cotangent's 9
+differentiable rows go back to rank order through the sort permutation,
+are summed to their owners by kernel B2 (ops.expand.reduce_instances) and
+go back to Gaussian order through the depth order. Both permutations are
+explicit scatters with unique indices, so nothing accumulates; the depth
+row takes no gradient, as in the reference (dgr/__init__.py:96).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import tile_render
-
-
-StageHook = Callable[[str, object], None]
-
-
-def no_stage_hook(stage: str, value: object) -> None:
-    """The default ``on_stage`` hook: records nothing."""
+from rain_tpu_torch.ops.tile_render import StageHook, no_stage_hook
 
 
 class DepthOrdered(NamedTuple):
@@ -53,7 +55,7 @@ class DepthOrdered(NamedTuple):
 
 
 class PackResiduals(NamedTuple):
-    """What the forward keeps for the sorted_pack VJP (training slice)."""
+    """What the forward keeps for the sorted_pack VJP."""
 
     order: torch.Tensor       # [N] int64 depth rank → Gaussian index
     exc: torch.Tensor         # [N] int64 exclusive prefix sum of tiles
@@ -96,8 +98,8 @@ def sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,
                     tile_offset: int, grid_x: int, n_tiles: int,
                     max_instances: int, need_depth: bool = True,
                     on_stage: StageHook = no_stage_hook):
-    """``sorted_pack`` plus its residuals: ((pack, num_instances,
-    overflow), PackResiduals).
+    """``sorted_pack`` without autograd, plus its residuals: ((pack,
+    num_instances, overflow), PackResiduals).
 
     ``on_stage(name, value)`` is called after each stage with its result:
     "depth_sort" (DepthOrdered), "expand_B1" ((cols, keys)) and
@@ -118,28 +120,78 @@ def sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,
     return (pack, total, total > max_instances), res
 
 
+def sorted_pack_bwd(res: PackResiduals, d_pack: torch.Tensor,
+                    on_stage: StageHook = no_stage_hook) -> torch.Tensor:
+    """The VJP of ``sorted_pack`` in its table: [16, M] pack cotangent →
+    [10, N] table cotangent (zero depth row).
+
+    ``on_stage("reduce_B2", (d_rank, exc, tiles, d_depth))`` reports kernel
+    B2's inputs and output.
+    """
+    m = d_pack.shape[1]
+    n = res.order.shape[0]
+    # tile order → rank (generated) order: d_rank[:, perm[j]] = d_pack[:, j]
+    # (B2 reads only the columns of kept instances, so the padding columns
+    # past them need no masking)
+    d_rank = torch.empty((tile_render.GRAD_ROWS, m), dtype=torch.float32,
+                         device=d_pack.device)
+    d_rank[:, res.perm] = d_pack[:tile_render.GRAD_ROWS]
+    d_depth = expand_ops.reduce_instances(d_rank, res.exc, res.tiles)
+    on_stage("reduce_B2", (d_rank, res.exc, res.tiles, d_depth))
+    # depth order → Gaussian order: d_table[:, order[r]] = d_depth[:, r]
+    d_table = torch.zeros((tile_render.KERNEL_ROWS, n), dtype=torch.float32,
+                          device=d_pack.device)
+    d_table[:tile_render.GRAD_ROWS, res.order] = d_depth
+    return d_table
+
+
+class _SortedPack(torch.autograd.Function):
+    """``sorted_pack`` with its VJP in ``table10``."""
+
+    @staticmethod
+    def forward(ctx, table10, tiles_touched, rect_min, rect_wh, tile_offset,
+                grid_x, n_tiles, max_instances, need_depth, on_stage):
+        (pack, total, overflow), res = sorted_pack_fwd(
+            table10, tiles_touched, rect_min, rect_wh, tile_offset, grid_x,
+            n_tiles, max_instances, need_depth, on_stage)
+        ctx.res = res
+        ctx.on_stage = on_stage
+        ctx.mark_non_differentiable(total, overflow)
+        return pack, total, overflow
+
+    @staticmethod
+    def backward(ctx, d_pack, d_total, d_overflow):
+        d_table = sorted_pack_bwd(ctx.res, d_pack.contiguous(),
+                                  ctx.on_stage)
+        return (d_table,) + (None,) * 9
+
+
 def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
                 tile_offset: int, grid_x: int, n_tiles: int,
-                max_instances: int, need_depth: bool = True):
+                max_instances: int, need_depth: bool = True,
+                on_stage: StageHook = no_stage_hook):
     """Tile-sorted [16, M] instance pack for ops.tile_render.
 
     Args:
       table10: [10, N] f32 per-Gaussian attribute rows in the
         tile_render.ROW_* layout (conic a/b/c, GLOBAL pixel xy, opacity,
-        rgb, depth).
+        rgb, depth). The only differentiable input.
       tiles_touched [N] int32, rect_min [N, 2] int32, rect_wh [N, 2] int32:
         integer rect data (ops.projection).
       tile_offset: global tile id of local tile 0. Every rect must lie in
         the owned tiles [tile_offset, tile_offset + n_tiles).
       grid_x, n_tiles, max_instances: grid config and instance capacity M.
       need_depth: False zeroes the pack's depth row.
+      on_stage: called with each forward stage's result (see
+        ``sorted_pack_fwd``) and, in the backward, with B2's
+        (see ``sorted_pack_bwd``).
 
     Returns (pack [16, M] f32, num_instances (0-d int64, may exceed M),
     overflow (0-d bool)).
     """
-    return sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,
-                           tile_offset, grid_x, n_tiles, max_instances,
-                           need_depth)[0]
+    return _SortedPack.apply(table10, tiles_touched, rect_min, rect_wh,
+                             tile_offset, grid_x, n_tiles, max_instances,
+                             need_depth, on_stage)
 
 
 def tile_ranges(rect_min, rect_wh, visible, grid_x: int, n_tiles: int,

@@ -15,10 +15,16 @@ the integer streams through it as f32 (12-bit halves of the offsets, the
 original index, which is inexact from 2^24 Gaussians on). Here the key is
 an exact integer and nothing else is carried.
 
-``expand_instances`` picks the path from the table's device: a CPU tensor
-runs ``expand_instances_torch``; a CUDA tensor launches the kernel of
-``csrc/expand.cu``. The reduction kernel (B2, the VJP's segmented sum)
-comes with the training slice.
+The transpose, kernel B2 (``reduce_instances``, the port of
+``_reduce_kernel``), sums rank-ordered per-instance gradient columns back
+to their owners: column g is the sum of the columns
+``[exc[g], exc[g] + tiles[g])``, clipped to M. Segments are contiguous and
+each instance has one owner, so every sum is taken by one thread in
+instance order, with no atomics: the result is the same on every run.
+
+Each wrapper picks the path from its input's device: a CPU tensor runs the
+plain version (``expand_instances_torch``, ``reduce_instances_torch``); a
+CUDA tensor launches the kernel of ``csrc/expand.cu`` or ``csrc/reduce.cu``.
 """
 
 from __future__ import annotations
@@ -121,3 +127,65 @@ def expand_instances_torch(table: torch.Tensor, tiles: torch.Tensor,
     cols = torch.where(valid[None, :], table[:, g],
                        torch.zeros((), device=dev))
     return cols, keys
+
+
+def reduce_instances(d_rank: torch.Tensor, exc: torch.Tensor,
+                     tiles: torch.Tensor) -> torch.Tensor:
+    """Sum per-instance gradient columns to their owning Gaussians.
+
+    Args (N Gaussians in depth order, M instance slots):
+      d_rank: [rows, M] float32 gradient columns in rank (generated) order.
+      exc: [N] int64 exclusive prefix sum of ``tiles``.
+      tiles: [N] int32 instances per Gaussian.
+
+    Returns [rows, N] float32: column g = the sum of d_rank's columns
+    ``[exc[g], min(exc[g] + tiles[g], M))`` taken in order from 0.0. A CPU
+    tensor runs the plain version; a CUDA tensor launches kernel B2.
+    """
+    if d_rank.dtype != torch.float32 or d_rank.dim() != 2 or \
+            not d_rank.is_contiguous():
+        raise ValueError(f"d_rank must be a contiguous [rows, M] float32 "
+                         f"tensor, got {d_rank.dtype} {tuple(d_rank.shape)}")
+    n = exc.shape[0]
+    for name, t, dtype in (("exc", exc, torch.int64),
+                           ("tiles", tiles, torch.int32)):
+        if t.dtype != dtype or t.shape != (n,) or \
+                t.device != d_rank.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{n}] {dtype} "
+                             f"tensor on {d_rank.device}")
+    if d_rank.device.type == "cpu":
+        return reduce_instances_torch(d_rank, exc, tiles)
+    if d_rank.device.type != "cuda":
+        raise ValueError(f"no reduction for device {d_rank.device}")
+    rows, m = d_rank.shape
+    out = torch.empty((rows, n), dtype=torch.float32, device=d_rank.device)
+    f = _build.kernel("reduce", "rain_reduce_instances", (
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
+    _build.launch(f, d_rank.device, d_rank.data_ptr(), rows, m,
+                  exc.data_ptr(), tiles.data_ptr(), n, out.data_ptr())
+    reduce_instances.launches += 1
+    return out
+
+
+reduce_instances.launches = 0
+
+
+def reduce_instances_torch(d_rank: torch.Tensor, exc: torch.Tensor,
+                           tiles: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of kernel B2 (same contract as
+    ``reduce_instances``), on any device: a loop over the position k in
+    each segment, adding in the kernel's order, so the two agree bit for
+    bit."""
+    rows, m = d_rank.shape
+    out = torch.zeros((rows, exc.shape[0]), dtype=torch.float32,
+                      device=d_rank.device)
+    if m == 0 or exc.shape[0] == 0:
+        return out
+    end = torch.clamp(exc + tiles, max=m)
+    for k in range(int(tiles.max())):
+        idx = exc + k
+        ok = (idx < end)[None, :]
+        col = d_rank[:, torch.clamp(idx, max=m - 1)]
+        out = torch.where(ok, out + col, out)
+    return out

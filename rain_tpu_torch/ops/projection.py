@@ -148,6 +148,7 @@ def preprocess(means3d: torch.Tensor,
                width: int, height: int,
                low_pass=0.3,
                scale_modifier: float = 1.0,
+               grid: tuple[int, int] | None = None,
                tight_opacity_culling: bool = True,
                ) -> Preprocessed:
     """Vectorized equivalent of preprocessCUDA.
@@ -157,15 +158,19 @@ def preprocess(means3d: torch.Tensor,
       opacities: [N] (post-sigmoid); shs: [N, K, 3]; alive: [N] bool mask
         for live capacity slots (dead slots are culled).
       sh_degree: active SH degree.
-      width/height: image size in pixels.
+      width/height: image size in pixels (focal lengths, NDC → pixels).
+      grid: (grid_x, grid_y), the tile grid the rects are clamped to; by
+        default the image's own. A bucketed render passes the bucket's grid
+        (ops.render ``render_wh``).
       tight_opacity_culling: shrink each rect to the ellipse where the
         Gaussian can reach alpha >= 1/255 (see below).
 
     Returns: Preprocessed tensors; culled/dead entries have radii == 0 and
       tiles_touched == 0 (matching forward.cu:178-179).
     """
-    grid_x = (width + TILE - 1) // TILE
-    grid_y = (height + TILE - 1) // TILE
+    if grid is None:
+        grid = ((width + TILE - 1) // TILE, (height + TILE - 1) // TILE)
+    grid_x, grid_y = grid
     focal_x = width / (2.0 * tan_fovx)
     focal_y = height / (2.0 * tan_fovy)
 

@@ -1,7 +1,7 @@
-"""Forward tile compositor: kernel B3 and its plain PyTorch version.
+"""Tile compositor: kernels B3 and B4 and their plain PyTorch versions.
 
-Port of the forward half of rain_tpu/ops/tile_render.py (``composite``,
-whose TPU kernel is ``_fwd_kernel``). Each 16x16 pixel tile composites its
+Port of rain_tpu/ops/tile_render.py (``composite``, whose TPU kernels are
+``_fwd_kernel`` and ``_bwd_kernel``). Each 16x16 pixel tile composites its
 ``[start, end)`` range of the tile-sorted instance pack front to back with
 the reference's rules (cuda_rasterizer/forward.cu:251-369):
 
@@ -12,17 +12,35 @@ the reference's rules (cuda_rasterizer/forward.cu:251-369):
 Output tiles are [n_tiles, 256, 8] with channels
 [r, g, b, depth, alpha_sum, final_T, n_contrib, 0] and no background.
 
-``composite_forward`` picks the path from the pack's device: a CPU tensor
-runs ``composite_forward_torch``; a CUDA tensor launches the kernel of
-``csrc/tile_render_fwd.cu``. The power is in the direct form above, not the
-TPU kernel's tile-local quadratic-basis matmul, so the port rounds like the
-reference's sequential loop (and ops/reference_composite.py). The backward
-kernel (B4) comes with the training slice.
+The backward (kernel B4, ``composite_backward``, the port of
+``_bwd_kernel``) takes the cotangents of r, g, b and final_T and gives the
+gradients of conic a/b/c, xg, yg, opacity and rgb per instance, in the
+pack's row layout; depth gets none, and the 0.99 clamp passes the gradient
+through (the reference's backward.cu:528,544). It walks each pixel's
+instances front to back again, seeded with C·g (the pixel's colour dotted
+with its cotangent), so the contribution behind instance k is C·g minus
+the contributions up to k:
+
+  dL/dalpha_k = T_k (c_k·g) - (S_k + T_final g_T) / (1 - alpha_k),
+  S_k = C·g - sum_{j <= k} alpha_j T_j (c_j·g);
+
+and it differentiates the direct-form power: dpower/dxg = -(a dx + b dy),
+dpower/dyg = -(c dy + b dx), dpower/da = -dx²/2, dpower/db = -dx dy,
+dpower/dc = -dy²/2. ``composite`` is the autograd Function whose forward
+is B3 and whose backward is B4.
+
+Each wrapper picks the path from the pack's device: a CPU tensor runs the
+plain version (``composite_forward_torch``, ``composite_backward_torch``);
+a CUDA tensor launches the kernel of ``csrc/tile_render_fwd.cu`` or
+``csrc/tile_render_bwd.cu``. The power is in the direct form above, not
+the TPU kernel's tile-local quadratic-basis matmul, so the port rounds
+like the reference's sequential loop (and ops/reference_composite.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable
 
 import torch
 
@@ -45,6 +63,15 @@ ROW_A, ROW_B, ROW_C, ROW_XG, ROW_YG, ROW_OP, ROW_R, ROW_G, ROW_B2, \
     ROW_DEPTH = range(10)
 PACK_ROWS = 16
 KERNEL_ROWS = 10         # rows the compositor reads (ROW_A .. ROW_DEPTH)
+GRAD_ROWS = 9            # rows that take a gradient (ROW_A .. ROW_B2)
+WARP = 32                # pixels per warp in B4's reduction order
+
+
+StageHook = Callable[[str, object], None]
+
+
+def no_stage_hook(stage: str, value: object) -> None:
+    """The default ``on_stage`` hook: records nothing."""
 
 
 def pack_rows(xy, conic, opacity, color, depth):
@@ -111,6 +138,16 @@ def composite_forward(pack: torch.Tensor, starts: torch.Tensor,
 composite_forward.launches = 0
 
 
+def _pixel_coords(n_tiles, toff, grid_x, dev):
+    """Global pixel coordinates (px, py) of every tile's pixels, [T, P]
+    float32 each, pixel p = row-major position in the tile."""
+    gt = torch.arange(n_tiles, device=dev) + int(toff)
+    p = torch.arange(P, device=dev)
+    px = ((gt % grid_x) * TILE)[:, None] + (p % TILE)[None, :]
+    py = ((gt // grid_x) * TILE)[:, None] + (p // TILE)[None, :]
+    return px.to(torch.float32), py.to(torch.float32)
+
+
 def _composite_loop(pack, starts, ends, toff, grid_x):
     """The plain compositor, vectorised over tiles and pixels and looping
     over the position k in each tile's range. Returns (tiles, n_eval,
@@ -118,12 +155,7 @@ def _composite_loop(pack, starts, ends, toff, grid_x):
     done) and composited."""
     dev = pack.device
     n_tiles = starts.shape[0]
-    gt = torch.arange(n_tiles, device=dev) + int(toff)
-    p = torch.arange(P, device=dev)
-    px = ((gt % grid_x) * TILE)[:, None] + (p % TILE)[None, :]
-    py = ((gt // grid_x) * TILE)[:, None] + (p // TILE)[None, :]
-    px = px.to(torch.float32)
-    py = py.to(torch.float32)
+    px, py = _pixel_coords(n_tiles, toff, grid_x, dev)
     start = starts.to(torch.int64)
     length = (ends - starts).to(torch.int64)
     last_col = max(pack.shape[1] - 1, 0)
@@ -178,3 +210,159 @@ def composite_work(pack: torch.Tensor, starts: torch.Tensor,
     compositor on these inputs: the data-dependent work that bounds B3."""
     _, n_eval, n_comp = _composite_loop(pack, starts, ends, toff, grid_x)
     return int(n_eval.sum()), int(n_comp.sum())
+
+
+def _check_tiles(name, t, pack, n_tiles):
+    if t.dtype != torch.float32 or t.shape != (n_tiles, P, 8) or \
+            t.device != pack.device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous [{n_tiles}, {P}, 8] "
+                         f"float32 tensor on {pack.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
+                       ends: torch.Tensor, toff: int, grid_x: int,
+                       tiles: torch.Tensor,
+                       g_tiles: torch.Tensor) -> torch.Tensor:
+    """Per-instance gradients of the compositor.
+
+    Args: ``composite_forward``'s (pack, starts, ends, toff, grid_x), its
+      output ``tiles`` and the cotangent ``g_tiles`` [n_tiles, 256, 8]
+      (only channels r, g, b and final_T are read).
+
+    Returns d_pack [16, M] float32 in the pack's row layout: rows ROW_A ..
+    ROW_B2 hold the gradients of conic a/b/c, xg, yg, opacity and rgb, the
+    depth and padding rows are zero, and so are the columns of instances
+    no pixel composited. A CPU pack runs the plain version; a CUDA pack
+    launches kernel B4.
+    """
+    _check(pack, starts, ends)
+    n_tiles = starts.shape[0]
+    _check_tiles("tiles", tiles, pack, n_tiles)
+    _check_tiles("g_tiles", g_tiles, pack, n_tiles)
+    if pack.device.type == "cpu":
+        return composite_backward_torch(pack, starts, ends, toff, grid_x,
+                                        tiles, g_tiles)
+    if pack.device.type != "cuda":
+        raise ValueError(f"no compositor for device {pack.device}")
+    d_pack = torch.zeros_like(pack)
+    f = _build.kernel("tile_render_bwd", "rain_composite_backward", (
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p))
+    _build.launch(f, pack.device, pack.data_ptr(), pack.shape[1],
+                  starts.data_ptr(), n_tiles, int(toff), int(grid_x),
+                  tiles.data_ptr(), g_tiles.data_ptr(), d_pack.data_ptr())
+    composite_backward.launches += 1
+    return d_pack
+
+
+composite_backward.launches = 0
+
+
+def _warp_tree_sum(x):
+    """Sum [T, P, R] over the pixels as kernel B4 does: a shuffle-down tree
+    over the 32 lanes of each warp, then the warp sums in warp order."""
+    x = x.reshape(x.shape[0], P // WARP, WARP, x.shape[-1])
+    half = WARP // 2
+    while half:
+        x = x[:, :, :half] + x[:, :, half:2 * half]
+        half //= 2
+    s = x[:, 0, 0]
+    for w in range(1, P // WARP):
+        s = s + x[:, w, 0]
+    return s
+
+
+def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
+                             ends: torch.Tensor, toff: int, grid_x: int,
+                             tiles: torch.Tensor,
+                             g_tiles: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of kernel B4 (same contract as
+    ``composite_backward``), on any device: vectorised over tiles and
+    pixels, looping over the position k in each tile's range, with the
+    kernel's arithmetic and reduction order, so the two round alike. The
+    gradients are written by hand, not taken by autograd through the
+    forward: the 0.99 clamp passes the gradient here, as in the
+    reference."""
+    dev = pack.device
+    n_tiles = starts.shape[0]
+    m = pack.shape[1]
+    d_pack = torch.zeros_like(pack)
+    if n_tiles == 0:
+        return d_pack
+    px, py = _pixel_coords(n_tiles, toff, grid_x, dev)
+    start = starts.to(torch.int64)
+    g_r, g_g, g_b = g_tiles[..., CH_R], g_tiles[..., CH_G], g_tiles[..., CH_B]
+    bg = tiles[..., CH_T] * g_tiles[..., CH_T]
+    last = tiles[..., CH_NCONTRIB].to(torch.int64)
+    rest = tiles[..., CH_R] * g_r + tiles[..., CH_G] * g_g + \
+        tiles[..., CH_B] * g_b
+    T = torch.ones_like(bg)
+    n_walk = last.max(dim=1).values
+    zero = torch.zeros((), device=dev)
+    last_col = max(m - 1, 0)
+    for k in range(int(n_walk.max())):
+        cols = torch.clamp(start + k, max=last_col)
+        a, b, c, xg, yg, op, cr, cg, cb = pack[:GRAD_ROWS, cols][:, :, None]
+        dx = xg - px
+        dy = yg - py
+        power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+        G = torch.exp(power)
+        alpha = torch.clamp(op * G, max=ALPHA_CLAMP)
+        active = (k < last) & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        cgd = g_r * cr + g_g * cg + g_b * cb
+        om = 1.0 - alpha
+        w = alpha * T
+        rest = torch.where(active, rest - w * cgd, rest)
+        dalpha = T * cgd - (rest + bg) / om
+        T = torch.where(active, T * om, T)
+        gd = dalpha * G
+        dpow = gd * op
+        hx, hy, hxy = dx * dx, dy * dy, dx * dy
+        contrib = torch.stack([
+            -0.5 * dpow * hx,
+            -dpow * hxy,
+            -0.5 * dpow * hy,
+            -dpow * (a * dx + b * dy),
+            -dpow * (c * dy + b * dx),
+            gd,
+            w * g_r, w * g_g, w * g_b,
+        ], dim=-1)
+        contrib = torch.where(active[..., None], contrib, zero)
+        walked = k < n_walk
+        d_pack[:GRAD_ROWS, cols[walked]] = _warp_tree_sum(contrib)[walked].T
+    return d_pack
+
+
+class _Composite(torch.autograd.Function):
+    """The compositor with kernel B3 forward and kernel B4 backward."""
+
+    @staticmethod
+    def forward(ctx, pack, starts, ends, toff, grid_x, on_stage):
+        tiles = composite_forward(pack, starts, ends, toff, grid_x)
+        ctx.save_for_backward(pack, starts, ends, tiles)
+        ctx.toff, ctx.grid_x, ctx.on_stage = toff, grid_x, on_stage
+        return tiles
+
+    @staticmethod
+    def backward(ctx, g_tiles):
+        pack, starts, ends, tiles = ctx.saved_tensors
+        g_tiles = g_tiles.contiguous()
+        d_pack = composite_backward(pack, starts, ends, ctx.toff,
+                                    ctx.grid_x, tiles, g_tiles)
+        ctx.on_stage("composite_bwd_B4",
+                     ((pack.detach(), starts, ends, ctx.toff, ctx.grid_x,
+                       tiles.detach(), g_tiles), d_pack))
+        return d_pack, None, None, None, None, None
+
+
+def composite(pack: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+              toff: int, grid_x: int, on_stage: StageHook = no_stage_hook
+              ) -> torch.Tensor:
+    """``composite_forward`` (kernel B3) as an autograd Function whose
+    backward is ``composite_backward`` (kernel B4): only the pack takes a
+    gradient, and only through the r, g, b and final_T channels.
+    ``on_stage("composite_bwd_B4", (B4's args, d_pack))`` is called in the
+    backward."""
+    return _Composite.apply(pack, starts, ends, toff, grid_x, on_stage)

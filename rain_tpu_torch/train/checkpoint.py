@@ -4,7 +4,7 @@ Port of the PLY half of rain_tpu/train/checkpoint.py (:84-100), the
 counterpart of the reference's scene.save (scene/__init__.py:77-79). The
 files use the reference attribute schema (data/ply.py), so snapshots
 written by either package load in the other. The npz training checkpoints
-come with the training slice.
+come with the Trainer loop.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import tile_render
@@ -18,6 +19,8 @@ torch.set_num_threads(1)
 
 W, H, M = 160, 112, 1 << 14
 GX, GY = (W + 15) // 16, (H + 15) // 16
+OPT = {"feature_lr": 0.0025, "opacity_lr": 0.05, "scaling_lr": 0.005,
+       "rotation_lr": 0.001}
 
 
 @pytest.fixture
@@ -76,8 +79,61 @@ def test_eval_render_on_card_matches_cpu(cuda):
     assert torch.equal(got.radii.cpu(), want.radii)
 
 
+def _train(device, state=None, seen=None):
+    if state is None:
+        state = _state(device)
+    if seen is None:
+        seen = {}
+    gt = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (3, H, W)).astype(np.float32)).to(device)
+    return step.train_step(
+        state, adam_mod.init(state.params), _camera(device), gt,
+        torch.zeros(3, device=device), 0.3, 1.6e-4, width=W, height=H,
+        sh_degree=3, max_instances=M, opt_cfg_leaves=OPT,
+        on_stage=seen.__setitem__)
+
+
+def test_backward_kernels_match_plain_versions(cuda):
+    seen = {}
+    _train(cuda, seen=seen)
+    d_rank, exc, tiles, d_depth = seen["reduce_B2"]
+    want = expand_ops.reduce_instances_torch(d_rank, exc, tiles)
+    assert torch.equal(d_depth, want)
+    assert float(want.abs().max()) > 0.0
+    args, d_pack = seen["composite_bwd_B4"]
+    want = tile_render.composite_backward_torch(*args)
+    for r in range(9):
+        err = (d_pack[r] - want[r]).abs().max()
+        assert float(err) < 1e-5 * float(want[r].abs().max()), r
+    assert torch.all(d_pack[9:] == 0.0)
+    assert float(d_pack[tile_render.ROW_OP].abs().max()) > 0.0
+
+
+def test_train_step_on_card_is_bitwise_reproducible(cuda):
+    state = _state(cuda)
+    (s1, o1, a1), (s2, o2, a2) = _train(cuda, state), _train(cuda, state)
+    assert torch.equal(a1.loss, a2.loss)
+    for x, y in zip(list(s1.params) + list(o1.mu) + list(o1.nu),
+                    list(s2.params) + list(o2.mu) + list(o2.nu)):
+        assert torch.equal(x, y)
+    for k in gmod.STAT_FIELDS:
+        assert torch.equal(getattr(s1, k), getattr(s2, k))
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    sc, oc, ac = _train(cuda)
+    sh, oh, ah = _train("cpu")
+    torch.testing.assert_close(ac.loss.cpu(), ah.loss, rtol=1e-5, atol=0.0)
+    assert int(ac.num_instances) == int(ah.num_instances) > 0
+    for mc, mh in zip(oc.mu, oh.mu):
+        err = (mc.cpu() - mh).abs().max()
+        assert float(err) <= 1e-4 * float(mh.abs().max())
+
+
 def test_wrappers_reject_wrong_inputs(cuda):
     pack = torch.zeros((16, 256), device=cuda)
     starts = torch.zeros(4, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
         tile_render.composite_forward(pack, starts, starts, 0, 2)
+    with pytest.raises(ValueError):
+        expand_ops.reduce_instances(pack, starts.int(), starts.int())
