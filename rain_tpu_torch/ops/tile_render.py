@@ -35,6 +35,25 @@ a CUDA tensor launches the kernel of ``csrc/tile_render_fwd.cu`` or
 ``csrc/tile_render_bwd.cu``. The power is in the direct form above, not
 the TPU kernel's tile-local quadratic-basis matmul, so the port rounds
 like the reference's sequential loop (and ops/reference_composite.py).
+
+Kernel B3 skips, before the exponential, every pair whose power lies
+below a per-instance floor (``power_floor``), and both kernels skip, for
+a warp, every instance whose alpha >= 1/255 ellipse cannot reach the
+warp's 8x4 pixel block (``block_mask``; ``thread_pixels`` maps threads
+to pixels); these are the plain copies of ``csrc/composite_cull.cuh``.
+Both only skip pairs that the rules above skip, so the plain versions
+walk every pair and still equal the kernels bit for bit.
+
+B4 sums, per instance over the tile's 256 pixels, the moments of dpow =
+gd·op (Σ dpow·dx, Σ dpow·dy, Σ dpow·dx², Σ dpow·dy², Σ dpow·dx·dy), Σ gd
+and Σ w·g_rgb, in a fixed order (``_pixel_sum``): 8 partial sums,
+partial s adding the pixels of threads s, s + 8, ..., s + 248 in turn
+from +0.0, then a tree over the 8 (s + 4, s + 2, s + 1); the conic and
+position rows follow from the moments (d a = -Σ dpow·dx²/2, d xg = -(a Σ
+dpow·dx + b Σ dpow·dy), ...). Pixels that did not composite the instance
+add +0, which the kernel skips; a sum that starts at +0 is never -0, so
+that is exact. B4 writes every element of its [16, M] output, zeros
+included, so the wrapper allocates it with ``torch.empty``.
 """
 
 from __future__ import annotations
@@ -64,7 +83,14 @@ ROW_A, ROW_B, ROW_C, ROW_XG, ROW_YG, ROW_OP, ROW_R, ROW_G, ROW_B2, \
 PACK_ROWS = 16
 KERNEL_ROWS = 10         # rows the compositor reads (ROW_A .. ROW_DEPTH)
 GRAD_ROWS = 9            # rows that take a gradient (ROW_A .. ROW_B2)
-WARP = 32                # pixels per warp in B4's reduction order
+SPLIT = 8                # partial sums per instance in B4's reduction
+# The cull of csrc/composite_cull.cuh (see there for the derivation).
+FLOOR_MARGIN = 1e-3      # the power floor's margin below ln(alpha_min/op)
+CULL_GAMMA = 1e-5        # bound on the f32 power's relative rounding
+CULL_GROW, CULL_PAD = 1.01, 0.05   # the radii's margin, relative and in px
+CULL_COND = 1e-3         # det'' / (a'' c'') below which nothing is culled
+CULL_HUGE = 1e30
+WARP, WARPS = 32, 8      # threads per warp, warps per tile (8x4 pixels each)
 
 
 StageHook = Callable[[str, object], None]
@@ -136,6 +162,48 @@ def composite_forward(pack: torch.Tensor, starts: torch.Tensor,
 
 
 composite_forward.launches = 0
+
+
+def power_floor(op: torch.Tensor) -> torch.Tensor:
+    """Per-instance power floor (csrc/composite_cull.cuh:power_floor): a
+    pair whose power lies below it has op·e^power < 1/255, so the kernels
+    skip it without the exponential."""
+    return torch.log(torch.full_like(op, ALPHA_MIN) / op) - FLOOR_MARGIN
+
+
+def thread_pixels() -> torch.Tensor:
+    """[P] int64: the tile pixel (row-major) of each thread of kernels B3
+    and B4 (csrc/composite_cull.cuh:pixel_of). Warp w takes the 8x4 block
+    x = 8 (w mod 2) + lane mod 8, y = 4 (w // 2) + lane // 8."""
+    tid = torch.arange(P)
+    w, lane = tid // WARP, tid % WARP
+    return TILE * (4 * (w // 2) + lane // 8) + 8 * (w % 2) + lane % 8
+
+
+def block_mask(a, b, c, xg, yg, floor, tx0, ty0) -> torch.Tensor:
+    """Per-instance block mask (csrc/composite_cull.cuh:block_mask), int64:
+    bit w is set unless no pixel of warp w's 8x4 block (x in [tx0 + 8 (w
+    mod 2), + 7], y in [ty0 + 4 (w // 2), + 3]) can reach power >= floor.
+    Arguments broadcast (instance rows as float32 tensors, tile origins as
+    numbers or tensors)."""
+    L = -floor
+    ap = a * (1.0 - 2.0 * CULL_GAMMA)
+    cp = c * (1.0 - 2.0 * CULL_GAMMA)
+    bp = b.abs() * (1.0 + 2.0 * CULL_GAMMA)
+    apcp = ap * cp
+    det = apcp - bp * bp
+    ry = torch.sqrt(2.0 * L * ap / det) * CULL_GROW + CULL_PAD
+    rx = torch.sqrt(2.0 * L * cp / det) * CULL_GROW + CULL_PAD
+    ok = (ap > 0.0) & (cp > 0.0) & (det > CULL_COND * apcp) & \
+        (ry < CULL_HUGE) & (rx < CULL_HUGE)
+    w = torch.arange(WARPS)
+    x0 = torch.as_tensor(tx0, dtype=torch.float32)[..., None] + 8.0 * (w % 2)
+    y0 = torch.as_tensor(ty0, dtype=torch.float32)[..., None] + 4.0 * (w // 2)
+    bits = ((xg + rx)[..., None] >= x0) & ((xg - rx)[..., None] <= x0 + 7.0) \
+        & ((yg + ry)[..., None] >= y0) & ((yg - ry)[..., None] <= y0 + 3.0)
+    mask = (bits.to(torch.int64) << w).sum(-1)
+    mask = torch.where(ok, mask, (1 << WARPS) - 1)
+    return torch.where(L < 0.0, 0, mask)
 
 
 def _pixel_coords(n_tiles, toff, grid_x, dev):
@@ -233,8 +301,10 @@ def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
     Returns d_pack [16, M] float32 in the pack's row layout: rows ROW_A ..
     ROW_B2 hold the gradients of conic a/b/c, xg, yg, opacity and rgb, the
     depth and padding rows are zero, and so are the columns of instances
-    no pixel composited. A CPU pack runs the plain version; a CUDA pack
-    launches kernel B4.
+    no pixel composited. The ranges must be ascending and disjoint, as
+    ``ops.binning.tile_ranges`` makes them: kernel B4 zeroes the columns
+    between and after them by that order. A CPU pack runs the plain
+    version; a CUDA pack launches kernel B4.
     """
     _check(pack, starts, ends)
     n_tiles = starts.shape[0]
@@ -245,14 +315,15 @@ def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
                                         tiles, g_tiles)
     if pack.device.type != "cuda":
         raise ValueError(f"no compositor for device {pack.device}")
-    d_pack = torch.zeros_like(pack)
+    d_pack = torch.empty_like(pack)     # B4 writes every element
     f = _build.kernel("tile_render_bwd", "rain_composite_backward", (
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p))
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p))
     _build.launch(f, pack.device, pack.data_ptr(), pack.shape[1],
-                  starts.data_ptr(), n_tiles, int(toff), int(grid_x),
-                  tiles.data_ptr(), g_tiles.data_ptr(), d_pack.data_ptr())
+                  starts.data_ptr(), ends.data_ptr(), n_tiles, int(toff),
+                  int(grid_x), tiles.data_ptr(), g_tiles.data_ptr(),
+                  d_pack.data_ptr())
     composite_backward.launches += 1
     return d_pack
 
@@ -260,18 +331,22 @@ def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
 composite_backward.launches = 0
 
 
-def _warp_tree_sum(x):
-    """Sum [T, P, R] over the pixels as kernel B4 does: a shuffle-down tree
-    over the 32 lanes of each warp, then the warp sums in warp order."""
-    x = x.reshape(x.shape[0], P // WARP, WARP, x.shape[-1])
-    half = WARP // 2
+def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum [T, P, R] over the pixels in kernel B4's order: partial sum s
+    (of SPLIT) adds the pixels of threads s, s + SPLIT, s + 2 SPLIT, ...
+    (``thread_pixels``) in turn, from +0.0; then a tree over the partial
+    sums, s + SPLIT/2 into s, then s + SPLIT/4, ..., as B4's
+    shuffle-down."""
+    x = x[:, thread_pixels().to(x.device)]
+    x = x.reshape(x.shape[0], P // SPLIT, SPLIT, x.shape[-1])
+    acc = torch.zeros_like(x[:, 0])
+    for i in range(P // SPLIT):
+        acc = acc + x[:, i]
+    half = SPLIT // 2
     while half:
-        x = x[:, :, :half] + x[:, :, half:2 * half]
+        acc = acc[:, :half] + acc[:, half:2 * half]
         half //= 2
-    s = x[:, 0, 0]
-    for w in range(1, P // WARP):
-        s = s + x[:, w, 0]
-    return s
+    return acc[:, 0]
 
 
 def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
@@ -281,10 +356,10 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
     """The plain PyTorch version of kernel B4 (same contract as
     ``composite_backward``), on any device: vectorised over tiles and
     pixels, looping over the position k in each tile's range, with the
-    kernel's arithmetic and reduction order, so the two round alike. The
-    gradients are written by hand, not taken by autograd through the
-    forward: the 0.99 clamp passes the gradient here, as in the
-    reference."""
+    kernel's arithmetic and reduction order (``_pixel_sum``), so the two
+    agree bit for bit. The gradients are written by hand, not taken by
+    autograd through the forward: the 0.99 clamp passes the gradient here,
+    as in the reference."""
     dev = pack.device
     n_tiles = starts.shape[0]
     m = pack.shape[1]
@@ -319,19 +394,20 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
         T = torch.where(active, T * om, T)
         gd = dalpha * G
         dpow = gd * op
-        hx, hy, hxy = dx * dx, dy * dy, dx * dy
-        contrib = torch.stack([
-            -0.5 * dpow * hx,
-            -dpow * hxy,
-            -0.5 * dpow * hy,
-            -dpow * (a * dx + b * dy),
-            -dpow * (c * dy + b * dx),
-            gd,
-            w * g_r, w * g_g, w * g_b,
-        ], dim=-1)
+        ex, ey = dpow * dx, dpow * dy
+        contrib = torch.stack([ex, ey, ex * dx, ey * dy, ex * dy, gd,
+                               w * g_r, w * g_g, w * g_b], dim=-1)
         contrib = torch.where(active[..., None], contrib, zero)
+        # the moments Σ dpow·(dx, dy, dx², dy², dx·dy), then d op and d rgb
+        sums = _pixel_sum(contrib)
+        mx, my, mxx, myy, mxy = sums[:, :5].unbind(-1)
+        a, b, c = a[:, 0], b[:, 0], c[:, 0]
+        grads = torch.cat([torch.stack([
+            -0.5 * mxx, -mxy, -0.5 * myy,
+            -(a * mx + b * my), -(c * my + b * mx)], dim=-1), sums[:, 5:]],
+            dim=-1)
         walked = k < n_walk
-        d_pack[:GRAD_ROWS, cols[walked]] = _warp_tree_sum(contrib)[walked].T
+        d_pack[:GRAD_ROWS, cols[walked]] = grads[walked].T
     return d_pack
 
 
