@@ -1,24 +1,25 @@
-"""Ablate the compositor kernels B3 and B4 of rain_tpu_torch on one card.
+"""Ablate the kernels B1, B3 and B4 of rain_tpu_torch on one card.
 
 Run from the repository root, with one CUDA card:
 
     python3 chip_ablate.py [--parent DIR] [--out RECORD.json]
 
-Builds, beside the kernels of rain_tpu_torch/csrc, copies of
-tile_render_fwd.cu (B3) and tile_render_bwd.cu (B4) with one design
+Builds, beside the kernels of rain_tpu_torch/csrc, copies of expand.cu
+(B1), tile_render_fwd.cu (B3) and tile_render_bwd.cu (B4) with one design
 element taken out each: an exact text edit of the source, listed in
 VARIANTS, that fails if the text is not found. With --parent DIR it also
-builds those two sources from DIR/rain_tpu_torch/csrc, a checkout of the
-commit before the redesign (its B4 takes no range ends and needs a
-zeroed output). It takes the inputs that B3 and B4 get in training step 0 of
-chip_smoke.py's main path (the 262k garden proxy at 1297x840), holds
-every variant's output to the plain version bit for bit (the first
-design of B4 sums in another order and is held to 1e-5 of each row's
-largest value), and times all variants in turns on the same inputs: the
-median over REPS rounds of CUDA events around one call behind a spin
-kernel, as chip_smoke.device_ms does. It prints the card's nvidia-smi
-line, each variant's ptxas line, resident blocks per SM and time, one
-JSON line per kernel and, last, {"ok": true}; --out writes the record.
+builds expand.cu from DIR/rain_tpu_torch/csrc, a checkout of the commit
+before B1's redesign, and times binning.tile_sort beside that commit's
+three-pass version (a gather, a zero pad, a concatenation). It takes the
+inputs that B1, B3 and B4 get in training step 0 of chip_smoke.py's main
+path (the 262k garden proxy at 1297x840), holds every variant's output to
+the plain version bit for bit (a few B4 variants sum in another order and
+are held to 1e-5 of each row's largest value), and times all variants in
+turns on the same inputs: the median over REPS rounds of CUDA events
+around one call behind a spin kernel, as chip_smoke.device_ms does. It
+prints the card's nvidia-smi line, each variant's ptxas line, resident
+blocks per SM and time, one JSON line per kernel and, last, {"ok": true};
+--out writes the record.
 """
 
 import argparse
@@ -36,6 +37,8 @@ import chip_smoke as smoke
 from rain_tpu_torch import _build
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import gaussians as gmod
+from rain_tpu_torch.ops import binning
+from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import tile_render
 
 REPS = 30
@@ -148,10 +151,222 @@ _STRIPS = [
      "        yg - ry <= y0 + 1.0f)\n"),
 ]
 
+_B1_WARP_LOOP = """\
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t p = lo + lane * step;
+    const bool above = p >= hi || offs[p] > target;
+    const unsigned ballot = __ballot_sync(kFull, above);
+    if (ballot == 0u) {
+      lo += 31 * step + 1;
+    } else {
+      const int j = __ffs(ballot) - 1;
+      hi = lo + j * step < hi ? lo + j * step : hi;
+      if (j > 0) lo += (j - 1) * step + 1;
+    }
+  }
+"""
+_B1_COUNT = """\
+  if (tid == 64) s_total = n > 0 ? offs[n - 1] : 0;
+  int owner = 0;
+  if (warp < 2) owner = warp_owner(offs, n, warp == 0 ? i0 : end - 1, lane);
+"""
+_B1_WINDOW_SEARCH = """\
+            int s = 0, e = len - 1;  // first j with offs[j] > i
+            while (s < e) {
+              const int mid = (s + e) >> 1;
+              if (w.offs[mid] > i) {
+                e = mid;
+              } else {
+                s = mid + 1;
+              }
+            }
+            j = s;
+"""
+_B1_VEC = """\
+  const bool vec_rows = m % 4 == 0 && (uintptr_t)out % 16 == 0;
+  const bool vec_keys = (uintptr_t)keys % 16 == 0;
+"""
+_B1_WINDOW_BLOCK = """\
+    const int64_t c_end = c0 + kV < live ? c0 + kV : live;
+    int64_t lo = i0;  // instances below lo belong to earlier pieces
+    for (int64_t a = g0; a <= g1; a += kWindow) {
+      const int len = (int)(g1 - a + 1 < kWindow ? g1 - a + 1 : kWindow);
+      if (a != g0) __syncthreads();  // the previous piece is read
+      for (int j = tid; j < len; j += kThreads) {
+        __pipeline_memcpy_async(&w.offs[j], offs + a + j, 8);
+        __pipeline_memcpy_async(&w.tiles[j], tiles + a + j, 4);
+        __pipeline_memcpy_async(&w.rect_w[j], rect_w + a + j, 4);
+        __pipeline_memcpy_async(&w.rect_base[j], rect_base + a + j, 4);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      const int64_t hi = w.offs[len - 1];  // this piece owns [lo, hi)
+      int j = -1;
+      Index dx = 0, dy = 0, wd = 1;
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        const int64_t i = c0 + v;
+        if (i >= lo && i < hi && i < c_end) {
+          if (j < 0) {
+            int s = 0, e = len - 1;  // first j with offs[j] > i
+            while (s < e) {
+              const int mid = (s + e) >> 1;
+              if (w.offs[mid] > i) {
+                e = mid;
+              } else {
+                s = mid + 1;
+              }
+            }
+            j = s;
+            const Index local = (Index)(i - (w.offs[j] - w.tiles[j]));
+            wd = max(w.rect_w[j], 1);
+            dy = local / wd;
+            dx = local - dy * wd;
+          } else if (w.offs[j] > i) {  // the same owner: the next tile
+            if (++dx == wd) {
+              dx = 0;
+              ++dy;
+            }
+          } else {  // the next owner with a tile starts at its first tile
+            do {
+              ++j;
+            } while (w.offs[j] <= i);
+            wd = max(w.rect_w[j], 1);
+            dx = 0;
+            dy = 0;
+          }
+          const int64_t tile = (int64_t)w.rect_base[j] + (int64_t)dy * grid_x +
+                               dx - tile_offset;
+          g[v] = (int)(a + j);
+          key[v] = (int64_t)((uint64_t)tile << 32) | g[v];
+        }
+      }
+      lo = hi;
+    }
+  }
+
+"""
+_B1_GLOBAL_WALK = """\
+    const int64_t c_end = c0 + kV < live ? c0 + kV : live;
+    int j = -1;
+    Index dx = 0, dy = 0, wd = 1;
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const int64_t i = c0 + v;
+      if (i < c_end) {
+        if (j < 0) {
+          int s = g0, e = g1;  // first j with offs[j] > i
+          while (s < e) {
+            const int mid = s + ((e - s) >> 1);
+            if (offs[mid] > i) {
+              e = mid;
+            } else {
+              s = mid + 1;
+            }
+          }
+          j = s;
+          const Index local = (Index)(i - (offs[j] - tiles[j]));
+          wd = max(rect_w[j], 1);
+          dy = local / wd;
+          dx = local - dy * wd;
+        } else if (offs[j] > i) {
+          if (++dx == wd) {
+            dx = 0;
+            ++dy;
+          }
+        } else {
+          do {
+            ++j;
+          } while (offs[j] <= i);
+          wd = max(rect_w[j], 1);
+          dx = 0;
+          dy = 0;
+        }
+        const int64_t tile = (int64_t)rect_base[j] + (int64_t)dy * grid_x +
+                             dx - tile_offset;
+        g[v] = j;
+        key[v] = (int64_t)((uint64_t)tile << 32) | g[v];
+      }
+    }
+  }
+
+"""
+
 # (variant, source, [(text, replacement), ...]); "full" is the source as
 # is. B3's heavy-first variant takes a tile order (the tiles by descending
 # range length); B4's 16-instance chunk sums 16 partial sums.
 VARIANTS = [
+    ("b1_full", "expand", []),
+    # the block's two owners by a plain binary search (18 dependent loads
+    # for 262k Gaussians), not by the warp's ballots
+    ("b1_serial_block_search", "expand", [
+        (_B1_WARP_LOOP,
+         "  while (lo < hi) {\n"
+         "    const int64_t mid = (lo + hi) >> 1;\n"
+         "    if (offs[mid] > target) {\n"
+         "      hi = mid;\n"
+         "    } else {\n"
+         "      lo = mid + 1;\n"
+         "    }\n"
+         "  }\n")]),
+    # the search waits for the instance count
+    ("b1_search_after_count", "expand", [
+        (_B1_COUNT,
+         "  if (tid == 64) s_total = n > 0 ? offs[n - 1] : 0;\n"
+         "  __syncthreads();\n"
+         "  int owner = 0;\n"
+         "  if (warp < 2 && i0 < s_total)\n"
+         "    owner = warp_owner(offs, n, warp == 0 ? i0 : end - 1, lane);\n"
+         )]),
+    # every thread reads the instance count (the same word in every block)
+    ("b1_count_per_thread", "expand", [
+        ("  if (tid == 64) s_total = n > 0 ? offs[n - 1] : 0;\n",
+         "  const int64_t total = n > 0 ? offs[n - 1] : 0;\n"),
+        ("  const int64_t total = s_total;\n", "")]),
+    # each thread's first owner by its own binary search over the global
+    # offsets, not over the staged window
+    ("b1_thread_global_search", "expand", [
+        (_B1_WINDOW_SEARCH,
+         "            int64_t s = 0, e = n - 1;\n"
+         "            while (s < e) {\n"
+         "              const int64_t mid = (s + e) >> 1;\n"
+         "              if (offs[mid] > i) {\n"
+         "                e = mid;\n"
+         "              } else {\n"
+         "                s = mid + 1;\n"
+         "              }\n"
+         "            }\n"
+         "            j = (int)(s - a);\n")]),
+    ("b1_scalar_stores", "expand", [
+        (_B1_VEC, "  const bool vec_rows = false;\n"
+                  "  const bool vec_keys = false;\n")]),
+    ("b1_int64_index", "expand", [
+        ("using Index = int32_t;", "using Index = int64_t;")]),
+    ("b1_v1", "expand", [
+        ("constexpr int kV = 4;", "constexpr int kV = 1;")]),
+    ("b1_v8", "expand", [
+        ("constexpr int kV = 4;", "constexpr int kV = 8;")]),
+    # one wave with twice or half the block: 2048-instance chunks over
+    # 2048-Gaussian windows, 3 blocks per SM; 512 over 512, 12 per SM
+    ("b1_512_threads", "expand", [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 512;"),
+        ("constexpr int kWindow = 1024;", "constexpr int kWindow = 2048;"),
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 3;")]),
+    ("b1_128_threads", "expand", [
+        ("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
+        ("constexpr int kWindow = 1024;", "constexpr int kWindow = 512;"),
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 12;")]),
+    # no staged window: each thread searches its first owner between the
+    # block's two owners in global memory (L1) and walks on there
+    ("b1_no_window", "expand", [
+        (_B1_WINDOW_BLOCK, _B1_GLOBAL_WALK),
+        ("constexpr int kSmem = (int)sizeof(Window);",
+         "constexpr int kSmem = 0;")]),
+    # no minimum of resident blocks for the register allocator
+    ("b1_no_min_blocks", "expand", [
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 1;")]),
     ("fwd_full", "tile_render_fwd", []),
     ("fwd_no_skip", "tile_render_fwd", [
         ("        if (power < q1.z) continue;\n", "")]),
@@ -259,7 +474,22 @@ VARIANTS = [
 HEADER_EDITS = {"fwd_strips": _STRIPS, "bwd_strips": _STRIPS}
 # variants that sum other terms, or in another order, than the plain
 # version: held to 1e-5 of each row's largest value, not bit for bit
-REORDERED = {"bwd_parent", "bwd_direct_terms", "bwd_chunk16", "bwd_strips"}
+REORDERED = {"bwd_direct_terms", "bwd_chunk16", "bwd_strips"}
+OCCUPANCY = {"b1": "rain_expand_occupancy",
+             "fwd": "rain_composite_forward_occupancy",
+             "bwd": "rain_composite_backward_occupancy"}
+
+
+def tile_sort_3pass(cols, keys, need_depth=True):
+    """binning.tile_sort before it gathered into the pack in one pass: a
+    [10, M] gather, a [6, M] zero pad and a concatenation."""
+    perm = torch.sort(keys).indices
+    rows = cols[:, perm]
+    if not need_depth:
+        rows[tile_render.ROW_DEPTH] = 0.0
+    pad = torch.zeros((tile_render.PACK_ROWS - rows.shape[0], rows.shape[1]),
+                      device=rows.device)
+    return torch.cat([rows, pad], dim=0), perm
 
 
 def tile_order(starts, ends):
@@ -322,7 +552,8 @@ def blocks_per_sm(lib, name):
 
 
 def step0_inputs():
-    """B3's and B4's inputs in training step 0 of chip_smoke's main path."""
+    """B1's (args, kwargs), B3's and B4's inputs in training step 0 of
+    chip_smoke's main path."""
     arrays = smoke.garden_proxy_state_arrays()
     state = gmod.from_arrays(**arrays, device=smoke.DEV)
     cam = smoke.pose(0).render_inputs()
@@ -330,8 +561,8 @@ def step0_inputs():
     state0 = gmod.from_arrays(**smoke.perturbed(arrays), device=smoke.DEV)
     _, seen = smoke.train(state0, adam_mod.init(state0.params), cam,
                           gt.render, smoke.WIDTH, smoke.HEIGHT)
-    b3_args = smoke.kernel_inputs(seen, smoke.WIDTH, smoke.HEIGHT)[1]
-    return b3_args, seen["composite_bwd_B4"][0]
+    b1_args, b3_args = smoke.kernel_inputs(seen, smoke.WIDTH, smoke.HEIGHT)
+    return b1_args, b3_args, seen["composite_bwd_B4"][0]
 
 
 def time_in_turns(calls):
@@ -374,13 +605,11 @@ def main(parent, out):
         jobs[name] = (variant_text(src, edits), include)
     if parent is not None:
         pcsrc = parent / "rain_tpu_torch" / "csrc"
-        for src in ("tile_render_fwd", "tile_render_bwd"):
-            jobs[f"{src[-3:]}_parent"] = ((pcsrc / f"{src}.cu").read_text(),
-                                          pcsrc)
+        jobs["b1_parent"] = ((pcsrc / "expand.cu").read_text(), pcsrc)
     libs = build(jobs)
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
-    b3_args, b4_args = step0_inputs()
+    (b1_in, b1_kw), b3_args, b4_args = step0_inputs()
     pack, starts, ends, toff, grid_x = b3_args
     m, n_tiles = pack.shape[1], starts.shape[0]
     tiles, g_tiles = b4_args[5], b4_args[6]
@@ -392,11 +621,28 @@ def main(parent, out):
     fwd_args = (p, ctypes.c_int64, p, p, i32, i32, i32, p)
     ordered_fwd_args = (p, ctypes.c_int64, p, p, p, i32, i32, i32, p)
     new_bwd = (p, ctypes.c_int64, p, p, i32, i32, i32, p, p, p)
-    old_bwd = (p, ctypes.c_int64, p, i32, i32, i32, p, p, p)
+    expand_args = (p, ctypes.c_int64, p, p, p, p, ctypes.c_int64, i32, i32,
+                   i32, p, p)
     dev = smoke.DEV.index or 0
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
+
+    def b1_call(lib):
+        """B1's variants and its first design take the same C arguments."""
+        f = entry(lib, "rain_expand_instances", expand_args)
+        m1 = b1_kw["max_instances"]
+        cols = torch.empty((expand_ops.ROWS, m1), device=smoke.DEV)
+        keys = torch.empty((m1,), dtype=torch.int64, device=smoke.DEV)
+
+        def call():
+            if f(dev, stream(), b1_in[0].data_ptr(), b1_in[0].shape[1],
+                 *(t.data_ptr() for t in b1_in[1:]), m1, b1_kw["grid_x"],
+                 b1_kw["tile_offset"], b1_kw["n_tiles"], cols.data_ptr(),
+                 keys.data_ptr()) != 0:
+                raise RuntimeError("B1 variant failed")
+            return cols, keys
+        return call
 
     def fwd_call(lib):
         """B3 as the first design and the variants without an order call
@@ -436,18 +682,6 @@ def main(parent, out):
             return d
         return call
 
-    def bwd_parent(lib):
-        f = entry(lib, "rain_composite_backward", old_bwd)
-
-        def call():
-            d = torch.zeros_like(pack)
-            if f(dev, stream(), pack.data_ptr(), m, starts.data_ptr(),
-                 n_tiles, toff, grid_x, tiles.data_ptr(), g_tiles.data_ptr(),
-                 d.data_ptr()) != 0:
-                raise RuntimeError("B4 parent failed")
-            return d
-        return call
-
     b3 = {name: fwd_call(libs[name][0]) for name, src, _ in VARIANTS
           if src == "tile_render_fwd" and name != "fwd_heavy_first"}
     b3["fwd_heavy_first"] = ordered_fwd_call(libs["fwd_heavy_first"][0],
@@ -459,11 +693,34 @@ def main(parent, out):
           for name, src, _ in VARIANTS if src == "tile_render_bwd"}
     b4["bwd_full_zero_filled"] = bwd_call(libs["bwd_full"][0], True)
     b4["zero_fill_16xM"] = lambda: torch.zeros_like(pack)
-    if parent is not None:
-        b3["fwd_parent"] = fwd_call(libs["fwd_parent"][0])
-        b4["bwd_parent"] = bwd_parent(libs["bwd_parent"][0])
+    b1 = {name: b1_call(libs[name][0])
+          for name in libs if name.startswith("b1_")}
+    want1 = expand_ops.expand_instances_torch(*b1_in, **b1_kw)
+    # the tile sort's pack, in one pass (binning.tile_sort) and in three
+    # (the commit before), on B1's output, with and without the depth row
+    cols1, keys1 = want1
+    sorts = {f"tile_sort{tag}{'' if depth else '_no_depth'}":
+             (lambda f=f, depth=depth: f(cols1, keys1, depth))
+             for tag, f in (("", binning.tile_sort),
+                            ("_3pass", tile_sort_3pass))
+             for depth in (True, False)}
 
     checks = {}
+    for name, f in b1.items():
+        cols, keys = f()
+        torch.cuda.synchronize()
+        if not (torch.equal(keys, want1[1]) and
+                smoke.bitwise_equal(cols, want1[0])):
+            raise AssertionError(f"{name} differs from its plain version")
+        checks[name] = "bitwise equal"
+    for depth in ("", "_no_depth"):
+        one, three = sorts[f"tile_sort{depth}"](), \
+            sorts[f"tile_sort_3pass{depth}"]()
+        if not (torch.equal(one[1], three[1]) and
+                smoke.bitwise_equal(one[0], three[0])):
+            raise AssertionError(f"tile_sort{depth} differs from the "
+                                 f"three-pass version")
+        checks[f"tile_sort{depth}"] = "bitwise equal to three passes"
     for name, f in list(b3.items()) + list(b4.items()):
         if name in ("tile_order_sort", "zero_fill_16xM"):
             continue
@@ -481,13 +738,12 @@ def main(parent, out):
             raise AssertionError(f"{name} differs from its plain version")
         else:
             checks[name] = "bitwise equal"
-    ms = {"B3": time_in_turns(b3), "B4": time_in_turns(b4)}
+    ms = {"B1": time_in_turns(b1), "tile_sort": time_in_turns(sorts),
+          "B3": time_in_turns(b3), "B4": time_in_turns(b4)}
     record = {"card": smi, "reps": REPS, "checks": checks, "ms": ms,
               "ptxas": {k: v[1] for k, v in libs.items()},
               "blocks_per_sm": {
-                  k: blocks_per_sm(lib, "rain_composite_forward_occupancy"
-                                   if k.startswith("fwd") else
-                                   "rain_composite_backward_occupancy")
+                  k: blocks_per_sm(lib, OCCUPANCY[k.split("_")[0]])
                   for k, (lib, _) in libs.items()}}
     for k, lines in record["ptxas"].items():
         print(f"{k}: {' | '.join(lines)}; blocks/SM "
@@ -504,7 +760,7 @@ def main(parent, out):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path,
-                        help="a checkout of the commit before the redesign")
+                        help="a checkout of the commit before B1's redesign")
     parser.add_argument("--out", type=Path,
                         help="write the run's record to this JSON file")
     args = parser.parse_args()

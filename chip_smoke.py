@@ -7,13 +7,22 @@ Run from the repository root, with one CUDA card:
 Phases, in order; any failure exits non-zero before the result lines:
 
 1. The card's name and power limit (nvidia-smi), then the build of every
-   kernel under rain_tpu_torch/csrc with nvcc, timed.
+   kernel under rain_tpu_torch/csrc with nvcc, timed. Then B1
+   (expand_instances) at its edge cases, on synthetic inputs made from a
+   seed (tests/torch_expand_cases.py) at the main path's N = 262,144 and
+   M = 786,432 unless the case sets them: tile-less Gaussians among
+   visible ones, one rect of the whole 82x53 grid, M below the instance
+   count, M = 786,431, no instance, no Gaussian, N = 2^21 + 3. Each is
+   held against the plain version bit for bit (signed zeros and NaNs
+   included), with NaN in the allocator's cache first so that a column
+   the kernel failed to write shows.
 2. The garden-proxy 262k scene of bench.py (262,144 Gaussians, SH degree
    3 with random f_rest) is saved with save_ply_snapshot and loaded onto
    the card with load_ply_snapshot. Each forward kernel's output in a
    frame of eval_render (kept by its on_stage hook) is held against its
    plain PyTorch version on the same inputs: B1 (expand_instances) at the
-   main path's shapes, bit for bit; B3 (composite_forward) on the main
+   main path's shapes, bit for bit in columns and keys; B3
+   (composite_forward) on the main
    path's frame and on a 256x256 view of 20k Gaussians, bit for bit in
    all 8 channels (its culling skips only pairs the plain loop skips).
    The whole eval_render on the card is held against the port's CPU path
@@ -43,8 +52,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    launches (torch.profiler), peak memory, and per kernel (median of
    CUDA-event times, beside its plain version, the library call that
    computes the same function where one exists, and its bound from the
-   H100 SXM's published peaks), on the training step's inputs; the
-   compositors' resident blocks per SM and each kernel's ptxas line
+   H100 SXM's published peaks), on the training step's inputs; B1's and
+   the compositors' resident blocks per SM and each kernel's ptxas line
    (registers, shared memory, spills); and, for the record, a [16, M]
    zero fill alone (what B4's output cost before B4 wrote its zeros).
 
@@ -55,6 +64,7 @@ number it took to that JSON file.
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import math
 import subprocess
@@ -347,14 +357,44 @@ def compare_backward(seen, what):
 
 
 def occupancy(lib):
-    """Resident blocks per SM of a compositor kernel (its C entry
-    rain_composite_{forward,backward}_occupancy)."""
-    entry = {"tile_render_fwd": "rain_composite_forward_occupancy",
+    """Resident blocks per SM of B1 or a compositor kernel (its C entry
+    rain_expand_occupancy or rain_composite_{forward,backward}_occupancy)."""
+    entry = {"expand": "rain_expand_occupancy",
+             "tile_render_fwd": "rain_composite_forward_occupancy",
              "tile_render_bwd": "rain_composite_backward_occupancy"}[lib]
     blocks = ctypes.c_int(0)
     _build.launch(_build.kernel(lib, entry, (ctypes.c_void_p,)), DEV,
                   ctypes.addressof(blocks))
     return blocks.value
+
+
+def b1_edge_cases():
+    """B1 against its plain version at the edge cases of
+    tests/torch_expand_cases.py (numpy and torch only), bit for bit, at the
+    main path's N and M unless the case sets them. Returns {case: (N, M,
+    instances)}."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_expand_cases", ROOT / "tests" / "torch_expand_cases.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    seen = {}
+    for name in cases.CASES:
+        args, kw = cases.expand_case(name, N_GAUSS, MAX_INSTANCES)
+        args = [a.to(DEV) for a in args]
+        n, m = args[0].shape[1], kw["max_instances"]
+        total = int(args[2][-1]) if n else 0
+        # NaN in the allocator's cache, so that an unwritten column shows
+        junk = torch.full((12 * m + 8192,), float("nan"), device=DEV)
+        del junk
+        cols, keys = expand_ops.expand_instances(*args, **kw)
+        cols_p, keys_p = expand_ops.expand_instances_torch(*args, **kw)
+        if not (torch.equal(keys, keys_p) and bitwise_equal(cols, cols_p)):
+            raise AssertionError(f"B1 differs from its plain version in "
+                                 f"case {name} (N={n}, M={m})")
+        print(f"B1 {name} (N={n}, M={m}, {total} instances): bitwise equal "
+              f"to its plain version")
+        seen[name] = (n, m, total)
+    return seen
 
 
 def counters():
@@ -410,10 +450,11 @@ def main(out: Path | None = None):
         for line in lines:
             print(f"  {name}: {line}")
     blocks_per_sm = {name: occupancy(name) for name in
-                     ("tile_render_fwd", "tile_render_bwd")}
+                     ("expand", "tile_render_fwd", "tile_render_bwd")}
     print(f"resident blocks per SM: {blocks_per_sm}")
     if len(list(_build.CSRC.glob("*.cu"))) != 4:
         raise AssertionError("expected four kernel sources")
+    b1_cases = b1_edge_cases()
 
     # --- 2. the scene, and each forward kernel against its plain version -
     arrays = garden_proxy_state_arrays()
@@ -430,7 +471,7 @@ def main(out: Path | None = None):
     cols_k, keys_k = seen["expand_B1"]
     cols_p, keys_p = expand_ops.expand_instances_torch(*b1_args[0],
                                                        **b1_args[1])
-    if not (torch.equal(cols_k, cols_p) and torch.equal(keys_k, keys_p)):
+    if not (bitwise_equal(cols_k, cols_p) and torch.equal(keys_k, keys_p)):
         raise AssertionError("B1 differs from expand_instances_torch")
     b1_err = float((cols_k - cols_p).abs().max())
     print(f"B1 at M={MAX_INSTANCES}: bitwise equal to its plain version")
@@ -707,7 +748,7 @@ def main(out: Path | None = None):
             "library_ms": dev_ms[library] if library else None})
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
-        "blocks_per_sm": blocks_per_sm,
+        "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
         "render": {
             "frame_ms_main_path": frame_ms,
             "frame_ms_median": frame[0], "frame_ms_quartiles": frame[1],

@@ -84,14 +84,19 @@ def depth_order(table10, tiles_touched, rect_min, rect_wh,
 
 def tile_sort(cols: torch.Tensor, keys: torch.Tensor,
               need_depth: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sort the expanded instances by key; returns (pack [16, M], perm)."""
+    """Sort the expanded instances by key; returns (pack [16, M], perm).
+
+    One pass over the pack: the sorted columns are gathered straight into
+    its first rows and the rest is zeroed (the depth row too, and not
+    gathered, when ``need_depth`` is False)."""
     perm = torch.sort(keys).indices
-    rows = cols[:, perm]
-    if not need_depth:
-        rows[tile_render.ROW_DEPTH] = 0.0
-    pad = torch.zeros((tile_render.PACK_ROWS - rows.shape[0], rows.shape[1]),
-                      device=rows.device)
-    return torch.cat([rows, pad], dim=0), perm
+    pack = torch.empty((tile_render.PACK_ROWS, cols.shape[1]),
+                       dtype=cols.dtype, device=cols.device)
+    # the depth row is the last of the ten
+    rows = cols.shape[0] if need_depth else tile_render.ROW_DEPTH
+    torch.index_select(cols[:rows], 1, perm, out=pack[:rows])
+    pack[rows:].zero_()
+    return pack, perm
 
 
 def sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,

@@ -25,6 +25,9 @@ instance order, with no atomics: the result is the same on every run.
 Each wrapper picks the path from its input's device: a CPU tensor runs the
 plain version (``expand_instances_torch``, ``reduce_instances_torch``); a
 CUDA tensor launches the kernel of ``csrc/expand.cu`` or ``csrc/reduce.cu``.
+Kernel B1 expands each block of 1024 consecutive instances from the
+window of depth-ordered Gaussians that owns them, whose offsets and rects
+it stages in shared memory.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ from rain_tpu_torch import _build
 ROWS = 10
 
 
-def _check(table, tiles, offs, rect_w, rect_base):
+def _check(table, tiles, offs, rect_w, rect_base, max_instances):
     if table.dtype != torch.float32 or table.dim() != 2 or \
             table.shape[0] != ROWS or not table.is_contiguous():
         raise ValueError(f"table must be a contiguous [10, N] float32 "
                          f"tensor, got {table.dtype} {tuple(table.shape)}")
     n = table.shape[1]
+    if n >= 2**31 or not 0 <= max_instances < 2**31:   # B1's int32 math
+        raise ValueError(f"N = {n} and max_instances = {max_instances} must "
+                         f"lie in [0, 2^31)")
     for name, t, dtype in (("tiles", tiles, torch.int32),
                            ("offs", offs, torch.int64),
                            ("rect_w", rect_w, torch.int32),
@@ -73,9 +79,9 @@ def expand_instances(table: torch.Tensor, tiles: torch.Tensor,
 
     Returns (cols [10, M] float32, keys [M] int64), see the module
     docstring. A CPU table runs the plain version; a CUDA table launches
-    kernel B1.
+    kernel B1. Raises ValueError unless N and M are below 2^31.
     """
-    _check(table, tiles, offs, rect_w, rect_base)
+    _check(table, tiles, offs, rect_w, rect_base, int(max_instances))
     if table.device.type == "cpu":
         return expand_instances_torch(
             table, tiles, offs, rect_w, rect_base, grid_x=grid_x,

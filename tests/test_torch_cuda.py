@@ -14,6 +14,7 @@ from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.train import step
+from torch_expand_cases import CASES, expand_case
 
 torch.set_num_threads(1)
 
@@ -56,7 +57,8 @@ def test_kernels_match_plain_versions(cuda):
         d.table, d.tiles, d.offs, d.rect_w, d.rect_base, grid_x=GX,
         tile_offset=0, n_tiles=GX * GY, max_instances=M)
     cols, keys = seen["expand_B1"]
-    assert torch.equal(cols, cols_p) and torch.equal(keys, keys_p)
+    assert torch.equal(keys, keys_p)
+    assert torch.equal(cols.view(torch.int32), cols_p.view(torch.int32))
 
     start, end = seen["tile_ranges"]
     tiles = seen["composite_B3"]
@@ -65,6 +67,22 @@ def test_kernels_match_plain_versions(cuda):
     # bit for bit: B3's culling skips only pairs that the plain loop skips
     assert torch.equal(tiles.view(torch.int32), tiles_p.view(torch.int32))
     assert int(tiles[..., tile_render.CH_NCONTRIB].max()) > 0
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_b1_edge_cases_match_plain_version(cuda, case):
+    args, kw = expand_case(case, 3000, 16_384)
+    args = [a.to(cuda) for a in args]
+    # NaN in the allocator's cache first, so that a column or key B1
+    # failed to write shows
+    junk = torch.full((12 * kw["max_instances"] + 8192,), float("nan"),
+                      device=cuda)
+    del junk
+    cols, keys = expand_ops.expand_instances(*args, **kw)
+    cols_p, keys_p = expand_ops.expand_instances_torch(*args, **kw)
+    assert torch.equal(keys, keys_p)
+    # bit for bit, signed zeros and NaNs included
+    assert torch.equal(cols.view(torch.int32), cols_p.view(torch.int32))
 
 
 def test_eval_render_on_card_matches_cpu(cuda):

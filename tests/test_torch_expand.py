@@ -5,6 +5,11 @@ and tile ranges against rain_tpu's on the same seeded scene. The JAX
 expansion kernel runs in Pallas interpret mode, as the JAX package's own
 tests run it. The pack is a selection and a permutation of the same f32
 values, so it must agree bit for bit, and so must every integer.
+
+The expansion's contract at its edge cases (tests/torch_expand_cases.py):
+the plain version, and a Python copy of kernel B1's block schedule
+(csrc/expand.cu: the warp search, the staged window in pieces, the walk),
+against a loop over instances written from the contract's words.
 """
 
 import numpy as np
@@ -19,6 +24,7 @@ from rain_tpu.ops import expand as jexp
 from rain_tpu.ops import projection as jproj
 from rain_tpu_torch.ops import binning as tbin
 from rain_tpu_torch.ops import expand as texp
+from torch_expand_cases import CASES, expand_case
 
 torch.set_num_threads(1)
 
@@ -153,3 +159,127 @@ def test_tile_ranges_match_jax(max_instances, band):
     np.testing.assert_array_equal(tstart.numpy(), np.asarray(start))
     np.testing.assert_array_equal(tend.numpy(), np.asarray(end))
     assert int(tend.max()) <= max_instances
+
+
+N_CASE, M_CASE = 3000, 16_384
+
+
+def _contract(table, tiles, offs, rect_w, rect_base, *, grid_x, tile_offset,
+              n_tiles, max_instances):
+    """The contract's words as a loop: Gaussian g's k-th instance exc[g] + k
+    (if below M) holds g's rows and the key of the k-th tile of its rect in
+    row-major order; every other column is zero with key n_tiles << 32."""
+    cols = np.zeros((10, max_instances), np.float32)
+    keys = np.full(max_instances, int(n_tiles) << 32, np.int64)
+    for g in np.flatnonzero(tiles):
+        w = max(int(rect_w[g]), 1)
+        exc = int(offs[g]) - int(tiles[g])
+        for k in range(min(int(tiles[g]), max_instances - exc)):
+            tile = int(rect_base[g]) + k // w * grid_x + k % w - tile_offset
+            cols[:, exc + k] = table[:, g]
+            keys[exc + k] = tile << 32 | int(g)
+    return cols, keys
+
+
+def _warp_owner(offs, target):
+    """csrc/expand.cu:warp_owner: 32 lanes probe 32 points and a ballot
+    cuts the range per round. Returns (first g with offs[g] > target,
+    rounds)."""
+    lo, hi, rounds = 0, len(offs) - 1, 0
+    while lo < hi:
+        step = (hi - lo + 31) >> 5
+        p = lo + np.arange(32) * step
+        above = (p >= hi) | (offs[np.minimum(p, hi)] > target)
+        if not above.any():
+            lo += 31 * step + 1
+        else:
+            j = int(np.argmax(above))
+            hi = min(lo + j * step, hi)
+            if j > 0:
+                lo += (j - 1) * step + 1
+        rounds += 1
+    return lo, rounds
+
+
+def _block_schedule(table, tiles, offs, rect_w, rect_base, *, grid_x,
+                    tile_offset, n_tiles, max_instances, threads=16, v=4,
+                    window=16):
+    """csrc/expand.cu's schedule in Python, at a small block and window:
+    per chunk of threads * v instances, the owners of its first and last
+    live instance by the warp search, then the window between them in
+    pieces of `window` Gaussians; thread t searches its first column's owner
+    in the piece and walks on (the next tile, or the next owner's first)."""
+    m = max_instances
+    cols = np.zeros((10, m), np.float32)
+    keys = np.full(m, int(n_tiles) << 32, np.int64)
+    live = min(int(offs[-1]) if len(offs) else 0, m)
+    for i0 in range(0, live, threads * v):
+        end = min(i0 + threads * v, live)
+        g0, g1 = _warp_owner(offs, i0)[0], _warp_owner(offs, end - 1)[0]
+        lo = i0
+        for a in range(g0, g1 + 1, window):
+            w_offs = offs[a:min(a + window, g1 + 1)]
+            hi = int(w_offs[-1])
+            for c0 in range(i0, end, v):
+                j = None
+                for i in range(max(c0, lo), min(c0 + v, hi, end)):
+                    if j is None:
+                        j = int(np.searchsorted(w_offs, i, side="right"))
+                        local = i - (int(w_offs[j]) - int(tiles[a + j]))
+                        wd = max(int(rect_w[a + j]), 1)
+                        dy, dx = divmod(local, wd)
+                    elif w_offs[j] > i:
+                        dx += 1
+                        if dx == wd:
+                            dx, dy = 0, dy + 1
+                    else:
+                        while w_offs[j] <= i:
+                            j += 1
+                        wd = max(int(rect_w[a + j]), 1)
+                        dx = dy = 0
+                    tile = int(rect_base[a + j]) + dy * grid_x + dx - \
+                        tile_offset
+                    cols[:, i] = table[:, a + j]
+                    keys[i] = tile << 32 | (a + j)
+            lo = hi
+    return cols, keys
+
+
+def _assert_bitwise(cols, keys, want_cols, want_keys):
+    np.testing.assert_array_equal(keys, want_keys)
+    assert cols.shape == want_cols.shape
+    np.testing.assert_array_equal(cols.view(np.int32),
+                                  want_cols.view(np.int32))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_expansion_follows_the_contract(case):
+    args, kw = expand_case(case, N_CASE, M_CASE)
+    cols, keys = texp.expand_instances(*args, **kw)
+    _assert_bitwise(cols.numpy(), keys.numpy(),
+                    *_contract(*(a.numpy() for a in args), **kw))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_b1_block_schedule_follows_the_contract(case):
+    args, kw = expand_case(case, N_CASE, M_CASE)
+    arrays = [a.numpy() for a in args]
+    _assert_bitwise(*_block_schedule(*arrays, **kw), *_contract(*arrays, **kw))
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 1025, 262_144, 2**21 + 3])
+def test_warp_owner_search_takes_log32_rounds(n):
+    rng = np.random.default_rng(n)
+    offs = np.cumsum(rng.integers(0, 4, n) * (rng.random(n) < 0.8))
+    offs[-1] += 1   # at least one instance
+    targets = rng.integers(0, offs[-1], 64)
+    for t in np.concatenate([[0, offs[-1] - 1], targets]):
+        owner, rounds = _warp_owner(offs, t)
+        assert owner == np.searchsorted(offs, t, side="right")
+        assert 32 ** rounds < 32 * n   # rounds <= ceil(log_32 n)
+
+
+def test_expansion_rejects_counts_past_int32():
+    args, kw = expand_case("one_rect_spans_chunks", 50, 64)
+    with pytest.raises(ValueError):
+        texp.expand_instances(*args, **dict(kw, max_instances=2**31))
