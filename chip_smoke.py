@@ -56,6 +56,39 @@ Phases, in order; any failure exits non-zero before the result lines:
    the compositors' resident blocks per SM and each kernel's ptxas line
    (registers, shared memory, spills); and, for the record, a [16, M]
    zero fill alone (what B4's output cost before B4 wrote its zeros).
+7. The Trainer loop at full width: rain_tpu_torch.train.trainer.Trainer
+   trains the 262k proxy at 1297x840 (SH degree 3, active degree 0 under
+   the ours_new schedule) from its own points (the exact KNN at 262,144),
+   with the 5 poses of phase 3 as train cameras and two more poses of the
+   pan as test cameras, their renders as ground truth. The ours_new preset
+   (c2f on) with warmup 30; 60 iterations, densify rounds at 20
+   (abe_split) and 40, the opacity reset at 50; capacity 393,216, which
+   the first round grows, and max_instances 262,144, which iteration 1
+   overflows. First KNN (20k points) and a densify round (3k) on the card
+   are held against the CPU path, and the exact KNN at 262,144 is timed
+   alone. Each run's loop is recorded by the wrappers of
+   tests/torch_trainer_trace.py, which the Trainer tests share. Run A
+   (pipelined, reports at 0 and 60, checkpoints at 25 and 30, a PLY at
+   60) starts from that KNN's scales bit for bit and has its launch
+   counters set to 0 just before the loop: each kernel launched once per
+   dispatched step, retries included, B1 and B3 also once per report
+   frame. It must retry an overflow at a tier that fits, keep no
+   overflowed step, grow the capacity, match each round's n_alive, reset
+   the opacity, keep every loss and param finite, raise the held-out PSNR
+   and reload its PLY with n_alive rows. A second run from seed 0 (B,
+   profiled over iterations 10-19) equals A's checkpoint at 25 bit for
+   bit. At B's first step after the growth (iteration 21: capacity
+   786,432 with dead rows at its tail, the grown tier) B1, B3, B4 and B2
+   are held against their plain versions bit for bit on that step's
+   inputs, and timed there beside their bounds. A run with pipeline 0
+   (C) equals B bit for bit, and a run resumed from the checkpoint at 30
+   (D) reaches 60 with finite losses. Recorded: the KNN's time, host ms
+   per iteration with pipeline 1 and 0, ms per densify round, capacity
+   growth (the state's) and retried step, tiers and instance counts of
+   every step, n_alive per round, the device's busy time per iteration
+   and its idle share over B's profiled window (busy time over that
+   window's host-clock time), peak memory and the synchronising calls of
+   one step.
 
 It prints the nvidia-smi line, one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line; with --out it also writes every
@@ -63,7 +96,9 @@ number it took to that JSON file.
 """
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import math
@@ -71,22 +106,28 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from rain_tpu_torch import _build
+from rain_tpu_torch import config
 from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.data.dataset import SceneData, nerfpp_norm
 from rain_tpu_torch.model import adam as adam_mod
+from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
-from rain_tpu_torch.ops.sh import rgb_to_sh_dc
+from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
 from rain_tpu_torch.train import checkpoint
 from rain_tpu_torch.train import step
+from rain_tpu_torch.train import trainer as trainer_mod
 
 ROOT = Path(__file__).resolve().parent
 
@@ -215,17 +256,100 @@ def train(state, opt, cam, gt, width, height, events=None,
     return out, seen
 
 
-def kernel_inputs(seen, width, height):
-    """The inputs that kernels B1 and B3 were given in a frame or step:
-    B1's (args, kwargs) and B3's args."""
+def kernel_inputs(seen, width, height, max_instances=None):
+    """The inputs that kernels B1 and B3 were given in a frame or step
+    (at the tier max_instances, MAX_INSTANCES if None): B1's (args,
+    kwargs) and B3's args."""
     grid_x = (width + 15) // 16
     n_tiles = grid_x * ((height + 15) // 16)
     d = seen["depth_sort"]
     start, end = seen["tile_ranges"]
     return (((d.table, d.tiles, d.offs, d.rect_w, d.rect_base),
              dict(grid_x=grid_x, tile_offset=0, n_tiles=n_tiles,
-                  max_instances=MAX_INSTANCES)),
+                  max_instances=max_instances or MAX_INSTANCES)),
             (seen["tile_sort_gather"], start, end, 0, grid_x))
+
+
+# (name, source, the TPU kernel it replaces) of B1, B3, B4 and B2
+KERNELS = (
+    ("expand_instances", "rain_tpu_torch/csrc/expand.cu",
+     "rain_tpu/ops/expand.py:49"),
+    ("composite_forward", "rain_tpu_torch/csrc/tile_render_fwd.cu",
+     "rain_tpu/ops/tile_render.py:212"),
+    ("composite_backward", "rain_tpu_torch/csrc/tile_render_bwd.cu",
+     "rain_tpu/ops/tile_render.py:279"),
+    ("reduce_instances", "rain_tpu_torch/csrc/reduce.cu",
+     "rain_tpu/ops/expand.py:145"),
+)
+
+
+def bound(nbytes, ops):
+    """(the least time in ms for these bytes and f32 operations on the
+    H100, what bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_NOFMA_OPS_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "operations" if t_ops > t_bytes else "bytes"
+
+
+def step_kernels(seen, width, height, max_instances):
+    """B1–B4 of one training step, on the inputs the step gave them (its
+    on_stage hook). Returns ({kernel: (its wrapper's call, its plain
+    version's call, (the library call's name, the call) or None, bytes,
+    f32 operations)}, the step's work): the bytes count each input read
+    once and each output written once, the operations the pairs this
+    step's data makes the compositors evaluate and composite; instances
+    past the tier are dropped, so min(instances, M) columns count."""
+    (d_args, d_kw), b3_args = kernel_inputs(seen, width, height,
+                                            max_instances)
+    n, m = d_args[0].shape[1], max_instances
+    total = int(d_args[2][-1])
+    live = min(total, m)
+    n_eval, n_comp = tile_render.composite_work(*b3_args)
+    n_tiles = b3_args[1].shape[0]
+    b4_args = seen["composite_bwd_B4"][0]
+    d_rank, exc, tiles_n, _ = seen["reduce_B2"]
+    # B4 re-evaluates each pixel's pairs up to its n_contrib and
+    # differentiates the composited ones (the forward's)
+    b4_eval = int(b4_args[5][..., tile_render.CH_NCONTRIB].sum())
+    rows = tile_render.GRAD_ROWS
+    work = {
+        "n": n, "m": m, "total": total, "n_tiles": n_tiles,
+        "b1_bytes": (10 * 4 + 4 + 8 + 4 + 4) * n + (10 * 4 + 8) * m,
+        "b3_pairs_evaluated": n_eval, "pairs_composited": n_comp,
+        "b3_ops": OPS_EVAL * n_eval + OPS_COMP * n_comp,
+        "b3_bytes": 10 * 4 * live + 2 * 4 * n_tiles +
+        n_tiles * 256 * 8 * 4,
+        "b4_pairs_evaluated": b4_eval,
+        "b4_ops": OPS_EVAL * b4_eval + OPS_BWD_COMP * n_comp,
+        "b4_bytes": 2 * rows * 4 * live + 4 * n_tiles +
+        2 * n_tiles * 256 * 8 * 4,
+        "b2_bytes": rows * 4 * live + (8 + 4) * n + rows * 4 * n,
+        "b2_ops": rows * live}
+    seg_lengths = tiles_n.to(torch.int64).expand(rows, n).contiguous()
+    seg_data = d_rank[:, :live].contiguous()
+    kernels = {
+        "expand_instances": (
+            lambda: expand_ops.expand_instances(*d_args, **d_kw),
+            lambda: expand_ops.expand_instances_torch(*d_args, **d_kw),
+            ("repeat_interleave", lambda: torch.repeat_interleave(
+                d_args[0], d_args[1], dim=1, output_size=total)),
+            work["b1_bytes"], 0),
+        "composite_forward": (
+            lambda: tile_render.composite_forward(*b3_args),
+            lambda: tile_render.composite_forward_torch(*b3_args),
+            None, work["b3_bytes"], work["b3_ops"]),
+        "composite_backward": (
+            lambda: tile_render.composite_backward(*b4_args),
+            lambda: tile_render.composite_backward_torch(*b4_args),
+            None, work["b4_bytes"], work["b4_ops"]),
+        "reduce_instances": (
+            lambda: expand_ops.reduce_instances(d_rank, exc, tiles_n),
+            lambda: expand_ops.reduce_instances_torch(d_rank, exc, tiles_n),
+            ("segment_reduce", lambda: torch.segment_reduce(
+                seg_data, "sum", lengths=seg_lengths, axis=1)),
+            work["b2_bytes"], work["b2_ops"]),
+    }
+    return kernels, work
 
 
 def device_profile(run_once, reps=3):
@@ -328,6 +452,29 @@ def compare_tiles(got, want, what):
     return float((got - want).abs().max())
 
 
+@torch.no_grad()
+def compare_forward(seen, width, height, what, max_instances=None):
+    """B1 and B3 of one frame or step against their plain versions on the
+    inputs it gave them, bit for bit (B1 in columns and keys). Returns
+    their max abs errors. Without autograd: a training step's pack
+    carries its graph, and the plain loops would record theirs."""
+    b1_args, b3_args = kernel_inputs(seen, width, height, max_instances)
+    cols_k, keys_k = seen["expand_B1"]
+    cols_p, keys_p = expand_ops.expand_instances_torch(*b1_args[0],
+                                                       **b1_args[1])
+    if not (bitwise_equal(cols_k, cols_p) and torch.equal(keys_k, keys_p)):
+        raise AssertionError(f"B1 {what} differs from "
+                             f"expand_instances_torch")
+    print(f"B1 {what}, M={b1_args[1]['max_instances']}: bitwise equal to "
+          f"its plain version")
+    b1_err = float((cols_k - cols_p).abs().max())
+    del cols_p, keys_p
+    return b1_err, compare_tiles(
+        seen["composite_B3"], tile_render.composite_forward_torch(*b3_args),
+        f"B3 {what}")
+
+
+@torch.no_grad()
 def compare_backward(seen, what):
     """B2 and B4 of one training step against their plain versions on the
     inputs the step gave them. B2 sums each segment from 0.0 in the plain
@@ -368,15 +515,20 @@ def occupancy(lib):
     return blocks.value
 
 
+def tests_module(name):
+    """A helper module of tests/ that imports numpy and torch only."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def b1_edge_cases():
     """B1 against its plain version at the edge cases of
-    tests/torch_expand_cases.py (numpy and torch only), bit for bit, at the
-    main path's N and M unless the case sets them. Returns {case: (N, M,
-    instances)}."""
-    spec = importlib.util.spec_from_file_location(
-        "torch_expand_cases", ROOT / "tests" / "torch_expand_cases.py")
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
+    tests/torch_expand_cases.py, bit for bit, at the main path's N and M
+    unless the case sets them. Returns {case: (N, M, instances)}."""
+    cases = tests_module("torch_expand_cases")
     seen = {}
     for name in cases.CASES:
         args, kw = cases.expand_case(name, N_GAUSS, MAX_INSTANCES)
@@ -426,6 +578,447 @@ def snapshot(state, opt):
             [getattr(state, k) for k in gmod.STAT_FIELDS])
 
 
+# --- 7. the Trainer loop -------------------------------------------------
+TRAINER_TEST_POSES = (5, 6)       # two more poses of the pan, held out
+TRAINER_ITERS = 60
+BITWISE_AT = 25                   # past the overflow retry and the abe round
+PROFILE_ITERS = range(10, 20)     # profiled in the pipelined run B
+PROFILE_STEPS = f"{PROFILE_ITERS[0]}-{PROFILE_ITERS[-1]}"
+HOST_ITERS = range(4, 20)         # timed: after the retry, before round 20
+TRACE = tests_module("torch_trainer_trace")   # the Trainer's recorder
+
+
+def trainer_scene(arrays):
+    """The 262k garden proxy as a Trainer scene: its points, colours
+    clip(sh_dc_to_rgb(f_dc), 0, 1), the 5 poses of phase 3 as train cameras
+    and two more poses of the pan as test cameras, each with the proxy's
+    render as its ground truth; nerf_radius from nerfpp_norm."""
+    state = gmod.from_arrays(**arrays, device=DEV)
+    bg = torch.tensor(BG, device=DEV)
+
+    def camera(k):
+        cam = pose(k)
+        out = step.eval_render(state, cam.render_inputs(DEV), bg, LOW_PASS,
+                               width=WIDTH, height=HEIGHT,
+                               sh_degree=SH_DEGREE,
+                               max_instances=MAX_INSTANCES)
+        cam.image = torch.clamp(out.render, 0.0, 1.0).cpu().numpy()
+        return cam
+
+    train_cams = [camera(k) for k in range(N_POSES)]
+    norm = nerfpp_norm(train_cams)
+    return SceneData(
+        train_cameras=train_cams,
+        test_cameras=[camera(k) for k in TRAINER_TEST_POSES],
+        points=arrays["xyz"],
+        colors=np.clip(sh_dc_to_rgb(arrays["f_dc"][:, 0, :]), 0.0,
+                       1.0).astype(np.float32),
+        nerf_radius=norm["radius"], nerf_translate=norm["translate"])
+
+
+def trainer_configs(**system):
+    """The ours_new preset (c2f on) with warmup_iter 30; 60 iterations with
+    densify rounds at 20 (abe_split) and 40, the opacity reset at 50; a
+    capacity that the first round grows (262,144 > 0.6 · 393,216) and an
+    instance tier that iteration 1 overflows."""
+    cfgs = config.extract_all(config.build_parser("chip_smoke").parse_args(
+        []))
+    cfgs["rain"] = dataclasses.replace(cfgs["rain"], ours_new=True)
+    cfgs = config.apply_method_presets(cfgs)
+    cfgs["rain"] = dataclasses.replace(cfgs["rain"], warmup_iter=30)
+    # densify_until = 30 + warmup 30: rounds at 20 and 40, none at 60
+    cfgs["opt"] = dataclasses.replace(
+        cfgs["opt"], iterations=TRAINER_ITERS, densify_from_iter=10,
+        densification_interval=20, densify_until_iter=30,
+        opacity_reset_interval=50)
+    cfgs["system"] = dataclasses.replace(
+        cfgs["system"], **{"capacity": 393_216, "max_instances": 262_144,
+                           "pipeline": 1, "seed": 0, **system})
+    return cfgs
+
+
+def timed(fn, *a, **kw):
+    """fn's result and its time in ms on the host clock, with a synchronize
+    on each side."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+@contextlib.contextmanager
+def recorded(capture=None):
+    """A Trainer's loop recorded while active by the wrappers of
+    tests/torch_trainer_trace.py, which the Trainer tests share: every
+    step's call, round, reset and growth, each round and growth timed with
+    a synchronize on each side. ``capture`` (a KernelCapture) wraps
+    train_step once more."""
+    with TRACE.Patches() as patches:
+        trace = TRACE.record(patches.setattr, step, densify_mod, gmod,
+                             timer=timed)
+        if capture is not None:
+            patches.setattr(step, "train_step",
+                            capture.wrap(step.train_step))
+        yield trace
+
+
+@torch.no_grad()
+def trainer_step_kernels(seen, width, height, max_instances, state):
+    """B1–B4 of one Trainer step: each against its plain version on the
+    inputs the step gave them, bit for bit (compare_forward,
+    compare_backward), then its time (device_ms) beside its bound and the
+    library call's time. Returns the record."""
+    what = (f"Trainer step {width}x{height}, {state.n_alive} of "
+            f"{state.capacity} rows alive")
+    errs = dict(zip(("expand_instances", "composite_forward"),
+                    compare_forward(seen, width, height, what,
+                                    max_instances)))
+    errs["reduce_instances"], errs["composite_backward"], b2_scale = \
+        compare_backward(seen, what)
+    kernels, work = step_kernels(seen, width, height, max_instances)
+    rows = []
+    for name, (call, _, library, nbytes, ops) in kernels.items():
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows.append({"name": name, "max_abs_err": errs[name],
+                     "ms": device_ms(call), "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "library": library[0] if library else None,
+                     "library_ms": device_ms(library[1]) if library
+                     else None})
+    print("trainer step kernels (ms, bound ms): " + json.dumps(
+        {r["name"]: [r["ms"], r["bound_ms"]] for r in rows}))
+    return {"n_alive": state.n_alive, "capacity": state.capacity,
+            "work": work, "b2_max_abs_per_row": b2_scale, "kernels": rows}
+
+
+class KernelCapture:
+    """Runs trainer_step_kernels on the first step a Trainer dispatches at
+    a capacity above ``after_capacity`` (after a growth, so with dead rows
+    at the tail of the state) that does not overflow its tier. Such steps
+    run with an on_stage hook, and the checks run as the step returns."""
+
+    def __init__(self, after_capacity):
+        self.after = after_capacity
+        self.result = None
+
+    def wrap(self, train_step):
+        def wrapped(state, opt, *a, **kw):
+            if self.result is not None or state.capacity <= self.after:
+                return train_step(state, opt, *a, **kw)
+            seen = {}
+            out = train_step(state, opt, *a, on_stage=stage_hook(seen), **kw)
+            if not bool(out[2].instance_overflow):
+                self.result = trainer_step_kernels(
+                    seen, kw["width"], kw["height"], kw["max_instances"],
+                    state)
+            return out
+        return wrapped
+
+
+def loop_summary(trace, first=1):
+    """One Trainer run, from its trace. Every dispatched step as (tier,
+    capacity, n_alive, loss, overflow, num_instances). A retry is a step at
+    a tier above the previous step's; the step that forced it is the first
+    that overflowed since the last retry, and it and every step queued
+    after it, up to the retry, were thrown away. The rest are the kept
+    steps, one per iteration from ``first`` on, and the host ms of each
+    iteration runs from its kept step's call to the next one's. Also each
+    retry (its time to the next step's call), round, growth and reset."""
+    calls, t = trace["calls"], trace["t"]
+    at = [i for i, c in enumerate(calls) if c[0] == "step"]
+    steps = [calls[i][6:8] + calls[i][10:11] + v
+             for i, v in zip(at, TRACE.steps(trace))]
+    thrown, retries, since = set(), [], 0
+    for k in range(1, len(steps)):
+        if steps[k][0] > steps[k - 1][0]:
+            cause = next(j for j in range(since, k) if steps[j][4])
+            thrown.update(range(cause, k))
+            retries.append({
+                "step": k, "iteration": first + k - len(thrown),
+                "tier_before": steps[k - 1][0], "tier_after": steps[k][0],
+                "instances": steps[cause][5],
+                "ms": (t[k + 1] - t[k]) * 1e3 if k + 1 < len(t) else None})
+            since = k
+    kept = [k for k in range(len(steps)) if k not in thrown]
+    iteration_ms = {first + j: (t[kept[j + 1]] - t[kept[j]]) * 1e3
+                    for j in range(len(kept) - 1)}
+    rounds = []
+    for i, c in enumerate(calls):
+        if c[0] == "densify":
+            nxt = next((calls[j][10] for j in range(i + 1, len(calls))
+                        if calls[j][0] == "step"), None)
+            rounds.append({"capacity": c[1], "n_alive_in": c[2],
+                           "abe_split": c[3], "use_size_threshold": c[4],
+                           "info": c[5]._asdict(), "ms": trace["ms"][i],
+                           "n_alive_next_step": nxt})
+    growths = [{"from": c[1], "to": c[2], "ms": trace["ms"][i]}
+               for i, c in enumerate(calls) if c[0] == "grow"]
+    return {"steps": steps, "kept": [steps[k] for k in kept],
+            "iteration_ms": iteration_ms, "retries": retries,
+            "rounds": rounds, "growths": growths,
+            "resets": sum(c[0] == "reset" for c in calls)}
+
+
+def quartiles(ms):
+    return {"median": float(np.median(ms)),
+            "q25_q75": [float(np.percentile(ms, q)) for q in (25, 75)],
+            "n": len(ms)}
+
+
+def live_rows(tr):
+    """The live rows of a Trainer's params, moments and statistics."""
+    n = tr.state.n_alive
+    return ([x[:n] for x in tr.state.params] +
+            [x[:n] for x in tr.opt_state.mu] +
+            [x[:n] for x in tr.opt_state.nu] +
+            [getattr(tr.state, k)[:n] for k in gmod.STAT_FIELDS])
+
+
+def count_syncs(fn):
+    """The number of synchronising CUDA calls that fn makes (PyTorch's
+    sync debug mode warns once per call)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def trainer_card_vs_cpu(arrays):
+    """KNN and a densify round on the card against the port's CPU path."""
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy(rng.normal(0, 1, (20_000, 3)).astype(np.float32))
+    torch.testing.assert_close(knn_ops.mean_dist3_auto(pts.to(DEV)).cpu(),
+                               knn_ops.mean_dist3_auto(pts), rtol=1e-6,
+                               atol=0.0)
+    small = {k: v[:3000] for k, v in arrays.items()}
+    small["scaling"] = rng.uniform(-5.0, -2.5, (3000, 3)).astype(np.float32)
+    small["rotation"] = rng.normal(size=(3000, 4)).astype(np.float32)
+    accum = rng.uniform(0, 4e-4, 3000).astype(np.float32)
+    noise = torch.from_numpy(rng.normal(size=(2, 12_000, 3)).astype(
+        np.float32))
+    outs = []
+    for dev in (DEV, torch.device("cpu")):
+        st = gmod.grow_capacity(gmod.from_arrays(**small, device=dev),
+                                12_000)
+        st.xyz_gradient_accum[:3000] = torch.from_numpy(accum).to(dev)
+        st.denom[:3000] = 1.0
+        outs.append(densify_mod.densify_and_prune(
+            st, adam_mod.init(st.params), noise.to(dev), max_grad=2e-4,
+            min_opacity=0.005, extent=5.0, percent_dense=0.01,
+            divide_ratio=0.7, abe_split=True))
+    (sc, _, ic), (sh, _, ih) = outs
+    if ic != ih or ic.n_split == 0 or ic.n_cloned == 0:
+        raise AssertionError(f"densify card vs CPU: {ic} / {ih}")
+    for a, b in zip(sc.params, sh.params):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+    print(f"trainer: KNN (20k) and densify_and_prune (3k, {ic}) on the "
+          f"card match the CPU path")
+    return ic._asdict()
+
+
+def trainer_phase(arrays):
+    """The Trainer loop at full width (phase 7). Returns its record."""
+    scene = trainer_scene(arrays)
+    rec = {"nerf_radius": scene.nerf_radius,
+           "card_vs_cpu_densify": trainer_card_vs_cpu(arrays)}
+    # the exact KNN at N, timed alone; create_from_pcd must give its scales
+    d2, knn_ms = timed(knn_ops.mean_dist3_matmul,
+                       torch.from_numpy(scene.points).to(DEV))
+    knn_scales = torch.log(torch.sqrt(torch.maximum(
+        d2, torch.tensor(1e-7, device=DEV))))[:, None].expand(-1, 3)
+
+    def log(msg):
+        print(f"  trainer: {msg}")
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        # A: the main path, pipelined, 60 iterations
+        with recorded() as trace_a:
+            tr = trainer_mod.Trainer(scene, trainer_configs(), tmp / "a",
+                                     log_fn=log, tensorboard=False)
+            if tr.state.params.xyz.device.type != DEV.type:
+                raise AssertionError("the Trainer is not on the card")
+            if tr.state.n_alive != N_GAUSS or not bitwise_equal(
+                    tr.state.params.scaling[:N_GAUSS], knn_scales) or not \
+                    bool(torch.isfinite(knn_scales).all()):
+                raise AssertionError(f"create_from_pcd did not run the exact "
+                                     f"KNN at {N_GAUSS} points")
+            del d2, knn_scales
+            r0 = tr.report(0)
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            tr.train(iterations=TRAINER_ITERS,
+                     test_iterations=(TRAINER_ITERS,),
+                     save_iterations=(TRAINER_ITERS,),
+                     checkpoint_iterations=(BITWISE_AT, 30))
+            torch.cuda.synchronize()
+            loop_s = time.perf_counter() - t
+            launches = read_counts()
+            peak_mib = torch.cuda.max_memory_allocated() / 2**20
+            held_mib = held / 2**20
+        a = loop_summary(trace_a)
+        steps, kept = a["steps"], a["kept"]
+        n_frames = len(scene.test_cameras) + 5    # the report at 60
+        want = {"expand_instances": len(steps) + n_frames,
+                "composite_forward": len(steps) + n_frames,
+                "composite_backward": len(steps),
+                "reduce_instances": len(steps)}
+        print(f"trainer: launches {launches} for {len(steps)} dispatched "
+              f"steps and {n_frames} report frames")
+        if launches != want:
+            raise AssertionError(f"expected launches {want}")
+        if not a["retries"]:
+            raise AssertionError("no overflow was retried")
+        if any(r["tier_after"] < r["instances"] for r in a["retries"]):
+            raise AssertionError("a grown tier is below the reported count")
+        if any(s[4] for s in kept) or len(kept) != TRAINER_ITERS or \
+                int(tr.opt_state.step) != TRAINER_ITERS:
+            raise AssertionError("a kept step overflowed")
+        if not a["growths"] or len(a["rounds"]) != 2 or a["resets"] != 1:
+            raise AssertionError(f"growths {a['growths']}, rounds "
+                                 f"{len(a['rounds'])}, resets {a['resets']}")
+        for rnd in a["rounds"]:
+            if rnd["n_alive_next_step"] != rnd["info"]["n_alive"]:
+                raise AssertionError(f"n_alive after a round: {rnd}")
+        if not all(math.isfinite(s[3]) for s in steps) or not all(
+                bool(torch.isfinite(x).all()) for x in tr.state.params):
+            raise AssertionError("non-finite loss or params")
+        r60 = tr.history[-1]
+        if not r60["test"]["psnr"] > r0["test"]["psnr"]:
+            raise AssertionError(f"held-out PSNR {r0} -> {r60}")
+        ply = checkpoint.load_ply_snapshot(
+            tmp / "a" / "point_cloud" / f"iteration_{TRAINER_ITERS}" /
+            "point_cloud.ply")
+        if ply.n_alive != tr.state.n_alive:
+            raise AssertionError("the PLY does not reload with n_alive rows")
+        cam = scene.train_cameras[0]
+        cam_in = cam.render_inputs(DEV)
+        gt = torch.from_numpy(cam.image).to(DEV)
+        # one step as the Trainer takes it (sh_degree 0, the active degree
+        # under ours_new); the Trainer's flag read is one more wait
+        sync_count = count_syncs(lambda: step.train_step(
+            tr.state, tr.opt_state, cam_in, gt, tr.background, tr.low_pass,
+            XYZ_LR, width=WIDTH, height=HEIGHT, sh_degree=0,
+            max_instances=tr.max_instances, opt_cfg_leaves=OPT_LEAVES))
+        iter_ms = a["iteration_ms"]
+        rec.update({
+            "knn_ms": knn_ms, "init_report": r0, "final_report": r60,
+            "loop_s": loop_s, "launches": launches,
+            "steps_dispatched": len(steps), "report_frames": n_frames,
+            "steps": steps, "rounds": a["rounds"], "growths": a["growths"],
+            "retries": a["retries"], "resets": a["resets"],
+            "final_tier": tr.max_instances, "final_n_alive": tr.state.n_alive,
+            "final_capacity": tr.state.capacity,
+            "host_ms_pipeline1": quartiles([iter_ms[i] for i in HOST_ITERS]),
+            "host_ms_pipeline1_all": iter_ms,
+            "peak_mib": peak_mib, "held_mib_before_loop": held_mib,
+            "syncs_per_step": sync_count})
+        del tr, ply, cam_in, gt
+
+        # B: the same seed, pipelined, to 25: profiled over 10 iterations,
+        # and B1-B4 held against their plain versions at iteration 21, the
+        # first step after the growth (run A's inputs: B equals A bit for
+        # bit, and its launches are not counted)
+        with np.load(tmp / "a" / f"chkpnt{BITWISE_AT}.npz") as z:
+            saved = {k: z[k] for k in z.files}
+        capture = KernelCapture(after_capacity=trainer_configs()[
+            "system"].capacity)
+        with recorded(capture):
+            tb = trainer_mod.Trainer(
+                scene, trainer_configs(profile_steps=PROFILE_STEPS),
+                tmp / "b", log_fn=log, tensorboard=False)
+            tb.train(iterations=BITWISE_AT, test_iterations=(),
+                     save_iterations=())
+        if capture.result is None:
+            raise AssertionError("no step ran after the capacity grew")
+        rec["trainer_step_kernels"] = capture.result
+        got = dict(zip(
+            [f"params.{f}" for f in gmod.GaussianParams._fields] +
+            [f"mu.{f}" for f in gmod.GaussianParams._fields] +
+            [f"nu.{f}" for f in gmod.GaussianParams._fields] +
+            list(gmod.STAT_FIELDS), live_rows(tb)))
+        if int(saved["n_alive"]) != tb.state.n_alive or \
+                int(saved["adam_step"]) != int(tb.opt_state.step) or not \
+                all(np.array_equal(v.cpu().numpy(), saved[k])
+                    for k, v in got.items()):
+            raise AssertionError(f"a second Trainer from the same seed "
+                                 f"differs at iteration {BITWISE_AT}")
+        # busy time and wall time of the same profiled window
+        ops = [e for e in tb.profile.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ops) / 1e3
+        if busy <= 0.0:
+            raise AssertionError("the profiler recorded no device time")
+        n_prof = len(PROFILE_ITERS)
+        ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        rec.update({"device_busy_ms_per_iter": busy / n_prof,
+                    "profiled_wall_ms_per_iter": tb.profile_wall_ms / n_prof,
+                    "device_idle_share": 1.0 - busy / tb.profile_wall_ms,
+                    "device_ops_per_iter": sum(e.count for e in ops) / n_prof,
+                    "device_top_per_iter": [
+                        [e.key[:100], e.self_device_time_total / 1e3 / n_prof,
+                         e.count / n_prof] for e in ops[:12]]})
+        print(f"trainer: a second Trainer from seed 0 equals the first bit "
+              f"for bit at iteration {BITWISE_AT}")
+
+        # C: pipeline 0 to 25, the same bits as B
+        with recorded() as trace_c:
+            tc = trainer_mod.Trainer(scene, trainer_configs(pipeline=0),
+                                     tmp / "c", log_fn=log,
+                                     tensorboard=False)
+            tc.train(iterations=BITWISE_AT, test_iterations=(),
+                     save_iterations=())
+        if (tc.state.n_alive, tc.max_instances, int(tc.opt_state.step)) != (
+                tb.state.n_alive, tb.max_instances,
+                int(tb.opt_state.step)) or not same_bits(
+                snapshot(tc.state, tc.opt_state),
+                snapshot(tb.state, tb.opt_state)):
+            raise AssertionError("pipeline 0 differs from pipeline 1")
+        iter_ms = loop_summary(trace_c)["iteration_ms"]
+        rec["host_ms_pipeline0"] = quartiles([iter_ms[i] for i in HOST_ITERS])
+        print(f"trainer: pipeline 0 equals pipeline 1 bit for bit at "
+              f"iteration {BITWISE_AT}")
+        del tb, tc
+
+        # D: resumed from the checkpoint at 30, on to 60
+        with recorded() as trace_d:
+            td = trainer_mod.Trainer(scene, trainer_configs(), tmp / "d",
+                                     log_fn=log, tensorboard=False)
+            td.train(iterations=TRAINER_ITERS, test_iterations=(),
+                     save_iterations=(),
+                     start_checkpoint=str(tmp / "a" / "chkpnt30.npz"))
+        resumed = loop_summary(trace_d, first=31)["steps"]
+        if td.iteration != TRAINER_ITERS or len(resumed) < 30 or not all(
+                math.isfinite(s[3]) for s in resumed):
+            raise AssertionError("the resumed Trainer did not reach 60")
+        rec["resumed_losses"] = [s[3] for s in resumed]
+        rec["resumed_capacity"] = td.state.capacity
+        del td
+    summary = {k: rec[k] for k in (
+        "knn_ms", "loop_s", "steps_dispatched", "final_tier",
+        "final_n_alive", "final_capacity", "host_ms_pipeline1",
+        "host_ms_pipeline0", "device_busy_ms_per_iter",
+        "profiled_wall_ms_per_iter", "device_idle_share", "peak_mib",
+        "syncs_per_step")}
+    summary.update(
+        psnr=[r0["test"]["psnr"], r60["test"]["psnr"]],
+        rounds_ms=[r["ms"] for r in rec["rounds"]],
+        n_alive=[r["info"]["n_alive"] for r in rec["rounds"]],
+        growth_ms=[g["ms"] for g in rec["growths"]],
+        retry_ms=[r["ms"] for r in rec["retries"]])
+    print("trainer: " + json.dumps(summary))
+    return rec
+
+
 def main(out: Path | None = None):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -467,18 +1060,8 @@ def main(out: Path | None = None):
         raise AssertionError("load_ply_snapshot did not load onto the card")
     cams = [pose(k).render_inputs() for k in range(N_POSES)]
     first, seen = render_frame(state, cams[0], WIDTH, HEIGHT)
-    b1_args, b3_args = kernel_inputs(seen, WIDTH, HEIGHT)
-    cols_k, keys_k = seen["expand_B1"]
-    cols_p, keys_p = expand_ops.expand_instances_torch(*b1_args[0],
-                                                       **b1_args[1])
-    if not (bitwise_equal(cols_k, cols_p) and torch.equal(keys_k, keys_p)):
-        raise AssertionError("B1 differs from expand_instances_torch")
-    b1_err = float((cols_k - cols_p).abs().max())
-    print(f"B1 at M={MAX_INSTANCES}: bitwise equal to its plain version")
-    b3_err = compare_tiles(seen["composite_B3"],
-                           tile_render.composite_forward_torch(*b3_args),
-                           f"B3 {WIDTH}x{HEIGHT}")
-    del seen, b1_args, b3_args, cols_k, keys_k, cols_p, keys_p
+    b1_err, b3_err = compare_forward(seen, WIDTH, HEIGHT, f"{WIDTH}x{HEIGHT}")
+    del seen
 
     crop_arrays = {k: v[:20_000] for k, v in arrays.items()}
     crop_state = gmod.from_arrays(**crop_arrays, device=DEV)
@@ -666,86 +1249,36 @@ def main(out: Path | None = None):
         "adam": train_stages_ms["adam"]}
 
     # kernels, on the inputs of training step 0
-    b1_args, b3_args = kernel_inputs(seen0, WIDTH, HEIGHT)
-    d_args, d_kw = b1_args
-    n, m = d_args[0].shape[1], MAX_INSTANCES
-    total = int(d_args[2][-1])
-    live = min(total, m)
-    b1_bytes = (10 * 4 + 4 + 8 + 4 + 4) * n + (10 * 4 + 8) * m
-    n_eval, n_comp = tile_render.composite_work(*b3_args)
-    n_tiles = b3_args[1].shape[0]
-    b3_bytes = 10 * 4 * live + 2 * 4 * n_tiles + n_tiles * 256 * 8 * 4
-    b3_ops = OPS_EVAL * n_eval + OPS_COMP * n_comp
-    b4_args = seen0["composite_bwd_B4"][0]
-    d_rank, exc, tiles_n, _ = seen0["reduce_B2"]
-    # B4 re-evaluates each pixel's pairs up to its n_contrib and
-    # differentiates the composited ones (the forward's)
-    b4_eval = int(b4_args[5][..., tile_render.CH_NCONTRIB].sum())
-    b4_ops = OPS_EVAL * b4_eval + OPS_BWD_COMP * n_comp
-    rows = tile_render.GRAD_ROWS
-    b4_bytes = (2 * rows * 4 * live + 4 * n_tiles +
-                2 * n_tiles * 256 * 8 * 4)
-    b2_bytes = rows * 4 * live + (8 + 4) * n + rows * 4 * n
-    b2_ops = rows * live
-    seg_lengths = tiles_n.to(torch.int64).expand(rows, n).contiguous()
-    seg_data = d_rank[:, :live].contiguous()
-
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_NOFMA_OPS_S
-        return max(t_bytes, t_ops) * 1e3, \
-            "operations" if t_ops > t_bytes else "bytes"
-
-    calls = {
-        "expand_instances": lambda: expand_ops.expand_instances(
-            *d_args, **d_kw),
-        "expand_instances_torch": lambda: expand_ops.expand_instances_torch(
-            *d_args, **d_kw),
-        "repeat_interleave": lambda: torch.repeat_interleave(
-            d_args[0], d_args[1], dim=1, output_size=total),
-        "composite_forward": lambda: tile_render.composite_forward(*b3_args),
-        "composite_forward_torch":
-            lambda: tile_render.composite_forward_torch(*b3_args),
-        "composite_backward": lambda: tile_render.composite_backward(
-            *b4_args),
-        "composite_backward_torch":
-            lambda: tile_render.composite_backward_torch(*b4_args),
-        "reduce_instances": lambda: expand_ops.reduce_instances(
-            d_rank, exc, tiles_n),
-        "reduce_instances_torch": lambda: expand_ops.reduce_instances_torch(
-            d_rank, exc, tiles_n),
-        "segment_reduce": lambda: torch.segment_reduce(
-            seg_data, "sum", lengths=seg_lengths, axis=1),
-        # the [16, M] zero fill that preceded B4 until B4 wrote its zeros
-        "zero_fill_16xM": lambda: torch.zeros_like(b3_args[0]),
-    }
+    step0_kernels, work = step_kernels(seen0, WIDTH, HEIGHT, MAX_INSTANCES)
+    calls = {}
+    for name, (call, plain, library, _, _) in step0_kernels.items():
+        calls[name], calls[name + "_torch"] = call, plain
+        if library:
+            calls[library[0]] = library[1]
+    # the [16, M] zero fill that preceded B4 until B4 wrote its zeros
+    pack = seen0["tile_sort_gather"]
+    calls["zero_fill_16xM"] = lambda: torch.zeros_like(pack)
     plain_reps = {"composite_forward_torch": 2, "composite_backward_torch": 2}
     dev_ms = {k: device_ms(f, reps=plain_reps.get(k, 20))
               for k, f in calls.items()}
-    launches = train_launches
-    rows = [
-        ("expand_instances", "rain_tpu_torch/csrc/expand.cu",
-         "rain_tpu/ops/expand.py:49", b1_err, "expand_instances_torch",
-         (b1_bytes, 0), "repeat_interleave"),
-        ("composite_forward", "rain_tpu_torch/csrc/tile_render_fwd.cu",
-         "rain_tpu/ops/tile_render.py:212", b3_err, "composite_forward_torch",
-         (b3_bytes, b3_ops), None),
-        ("composite_backward", "rain_tpu_torch/csrc/tile_render_bwd.cu",
-         "rain_tpu/ops/tile_render.py:279", b4_err,
-         "composite_backward_torch", (b4_bytes, b4_ops), None),
-        ("reduce_instances", "rain_tpu_torch/csrc/reduce.cu",
-         "rain_tpu/ops/expand.py:145", b2_err, "reduce_instances_torch",
-         (b2_bytes, b2_ops), "segment_reduce"),
-    ]
+    errs = {"expand_instances": b1_err, "composite_forward": b3_err,
+            "composite_backward": b4_err, "reduce_instances": b2_err}
     kernels = []
-    for name, source, replaces, err, plain, work, library in rows:
-        bound_ms, bound_by = bound(*work)
+    for name, source, replaces in KERNELS:
+        _, _, library, nbytes, ops = step0_kernels[name]
+        bound_ms, bound_by = bound(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": dev_ms[name],
-            "plain_ms": dev_ms[plain], "bound_ms": bound_ms,
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": errs[name], "ms": dev_ms[name],
+            "plain_ms": dev_ms[name + "_torch"], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": dev_ms[library] if library else None})
+            "library_ms": dev_ms[library[0]] if library else None})
+    work["b2_max_abs_per_row"] = b2_scale
+    # --- 7. the Trainer loop -----------------------------------------------
+    del ts, seen0, step0_kernels, calls, pack
+    trainer_rec = trainer_phase(arrays)
+
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
@@ -777,15 +1310,10 @@ def main(out: Path | None = None):
             "split_ms": train_split,
             "stages_sum_ms": float(sum(train_stages_ms.values())),
             "launches": train_launches},
-        "work": {
-            "n": n, "m": m, "total": total, "n_tiles": n_tiles,
-            "b1_bytes": b1_bytes, "b3_pairs_evaluated": n_eval,
-            "pairs_composited": n_comp, "b3_ops": b3_ops,
-            "b3_bytes": b3_bytes, "b4_pairs_evaluated": b4_eval,
-            "b4_ops": b4_ops, "b4_bytes": b4_bytes, "b2_bytes": b2_bytes,
-            "b2_max_abs_per_row": b2_scale},
+        "work": work,
         "dev_ms": dev_ms,
         "kernels": kernels,
+        "trainer": trainer_rec,
     }
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,16 +1,21 @@
-"""rain-tpu in PyTorch and CUDA: the training step and the render.
+"""rain-tpu in PyTorch and CUDA: the Trainer, the training step, the render.
 
 A port of the JAX package ``rain_tpu`` (which stays beside it as the
 reference) to PyTorch on an NVIDIA H100. Its layout mirrors the
 reference's, module by module:
 
-  data/    — camera math and PLY interchange (byte-compatible files).
-  model/   — the fixed-capacity Gaussian state and its activations, Adam,
-             the densification statistics.
+  config   — the configuration groups and their command-line flags.
+  data/    — camera math, PLY interchange (byte-compatible files), the
+             scene container.
+  model/   — the fixed-capacity Gaussian state (with its KNN init and
+             growth) and its activations, Adam, densification: the
+             statistics, clone / split / prune, the opacity reset.
   ops/     — preprocess (projection, SH), tile binning with the instance
              expansion and reduction kernels, the tile compositor's
-             forward and backward kernels, image assembly, the losses.
-  train/   — ``train_step``, ``eval_render`` and PLY snapshots.
+             forward and backward kernels, image assembly, the losses,
+             the KNN.
+  train/   — the ``Trainer`` loop and its schedules, ``train_step``,
+             ``eval_render``, npz checkpoints and PLY snapshots.
   csrc/    — the hand-written CUDA C++ kernels (sm_90a), built by
              ``_build`` with nvcc at first use.
 

@@ -16,8 +16,8 @@ Parameterization (identical to the reference):
 
 The state also carries the densification statistics of the JAX state
 (max_radii2d, xyz_gradient_accum, denom; gaussian_model.py:137-141),
-zeros at construction. ``create_from_pcd`` (which needs the KNN init)
-comes with the Trainer loop.
+zeros at construction. ``create_from_pcd`` initialises a state from a
+point cloud (the KNN init) and ``grow_capacity`` pads one with dead rows.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import numpy as np
 import torch
 
 from rain_tpu_torch import device as device_mod
+from rain_tpu_torch.ops import knn as knn_ops
+from rain_tpu_torch.ops import sh as sh_ops
 
 
 class GaussianParams(NamedTuple):
@@ -53,6 +55,10 @@ class GaussianState(NamedTuple):
 
 # The densification statistics of GaussianState, each [C] f32.
 STAT_FIELDS = ("max_radii2d", "xyz_gradient_accum", "denom")
+
+
+def inverse_sigmoid(x):
+    return torch.log(x / (1 - x))
 
 
 def activate(params: GaussianParams):
@@ -123,3 +129,64 @@ def from_numpy(params: dict[str, np.ndarray], n_alive: int,
         getattr(state, k)[:n_alive] = torch.from_numpy(
             np.array(v, np.float32)[:n_alive]).to(state.denom.device)
     return state
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, *,
+                    sh_degree: int, capacity: int, knn_window: int = 0,
+                    device=None) -> GaussianState:
+    """Initialise a state from a point cloud on ``device`` (default: the
+    CUDA card); gaussian_model.py:114-137.
+
+    Scales: log(sqrt(mean squared 3-NN distance)) per point, floored at
+    1e-7 (the distCUDA2 clamp, gaussian_model.py:124), with the exact
+    search (``mean_dist3_auto``) or, for ``knn_window`` > 0, the Morton
+    window; rotation: identity quaternion; opacity: logit(0.1).
+    """
+    dev = device_mod.resolve(device)
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points do not fit a capacity of {capacity}")
+    k = sh_ops.num_sh_coeffs(sh_degree)
+    params = _dead_fill(capacity, k - 1, dev)
+
+    pts = torch.from_numpy(np.array(points, np.float32)).to(dev)
+    if knn_window > 0:
+        d2 = knn_ops.mean_dist3(pts, window=knn_window)
+    else:
+        d2 = knn_ops.mean_dist3_auto(pts)
+    dist2 = torch.maximum(d2, torch.tensor(1e-7, device=dev))
+    # log(sqrt(.)), not 0.5·log(.): the two round differently
+    scales = torch.log(torch.sqrt(dist2))[:, None].expand(n, 3)
+    f_dc = sh_ops.rgb_to_sh_dc(
+        torch.from_numpy(np.array(colors, np.float32)).to(dev))[:, None, :]
+    # rain_tpu's inverse_sigmoid(0.1): the quotient in double, rounded to
+    # f32, then an f32 log
+    opac = torch.log(torch.tensor(0.1 / (1 - 0.1), device=dev))
+
+    params.xyz[:n] = pts
+    params.features_dc[:n] = f_dc
+    params.scaling[:n] = scales
+    params.opacity[:n] = opac
+    return GaussianState(params=params, n_alive=n,
+                         **{k: torch.zeros(capacity, device=dev)
+                            for k in STAT_FIELDS})
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """The state padded to ``new_capacity`` rows: dead-row placeholders
+    after the old rows, zero statistics. Returns new tensors."""
+    cap = state.capacity
+    if new_capacity < cap:
+        raise ValueError(f"cannot shrink capacity {cap} to {new_capacity}")
+    if new_capacity == cap:
+        return state
+    dev = state.params.xyz.device
+    fill = _dead_fill(new_capacity - cap,
+                      state.params.features_rest.shape[1], dev)
+    params = GaussianParams(*[torch.cat([o, f]) for o, f in
+                              zip(state.params, fill)])
+    return GaussianState(
+        params=params, n_alive=state.n_alive,
+        **{k: torch.cat([getattr(state, k),
+                         torch.zeros(new_capacity - cap, device=dev)])
+           for k in STAT_FIELDS})

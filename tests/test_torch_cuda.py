@@ -10,8 +10,10 @@ import torch
 
 from rain_tpu_torch.data.cameras import Camera
 from rain_tpu_torch.model import adam as adam_mod
+from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.train import step
 from torch_expand_cases import CASES, expand_case
@@ -171,3 +173,68 @@ def test_wrappers_reject_wrong_inputs(cuda):
         tile_render.composite_forward(pack, starts, starts, 0, 2)
     with pytest.raises(ValueError):
         expand_ops.reduce_instances(pack, starts.int(), starts.int())
+
+
+def test_knn_on_card_matches_cpu(cuda):
+    """The exact search at 3000 points and the window search, the card
+    against the CPU: the same candidates and the same f32/f64 operations,
+    so rtol 1e-6 holds with room (the matmul that picks the candidates
+    rounds differently in cuBLAS)."""
+    pts = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (3000, 3)).astype(np.float32))
+    for fn in (knn_ops.mean_dist3_auto, knn_ops.mean_dist3):
+        got = fn(pts.to(cuda)).cpu()
+        torch.testing.assert_close(got, fn(pts), rtol=1e-6, atol=0.0)
+
+
+def test_densify_on_card_matches_cpu(cuda):
+    """One densify round on the card and on the CPU from the same state
+    and noise: the same DensifyInfo and n_alive, values to rtol 1e-6
+    (exp, log and sigmoid may round an ulp apart)."""
+    rng = np.random.default_rng(6)
+    infos, states = [], []
+    for dev in (cuda, torch.device("cpu")):
+        state = _state(dev, n=600, seed=3)
+        cap = state.capacity
+        state = gmod.grow_capacity(state, 2 * cap)
+        g = torch.from_numpy(np.random.default_rng(7).uniform(
+            0, 4e-4, cap).astype(np.float32))
+        state.xyz_gradient_accum[:cap] = g.to(dev)
+        state.denom[:cap] = 1.0
+        noise = torch.from_numpy(rng.normal(size=(2, 2 * cap, 3)).astype(
+            np.float32)) if not states else states[0][2]
+        s, o, info = densify_mod.densify_and_prune(
+            state, adam_mod.init(state.params), noise.to(dev),
+            max_grad=2e-4, min_opacity=0.005, extent=4.0,
+            percent_dense=0.01, divide_ratio=0.8, abe_split=True)
+        infos.append(info)
+        states.append((s, o, noise))
+    assert infos[0] == infos[1] and infos[0].n_split > 0
+    for a, b in zip(states[0][0].params, states[1][0].params):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+
+
+def test_trainer_pipeline_is_bitwise_on_card(cuda, tmp_path):
+    """system.pipeline 1 against 0 on the card, across an overflow retry
+    and a densify round: the same bits."""
+    from test_torch_trainer_port import configs, make_scene
+    from rain_tpu_torch.train.trainer import Trainer
+    scene = make_scene(n_pts=400, size=64)
+    runs = []
+    for pipeline in (1, 0):
+        cfgs = configs(dict(iterations=12, densify_from_iter=4,
+                            densification_interval=6,
+                            opacity_reset_interval=10_000),
+                       dict(capacity=2048, max_instances=512,
+                            pipeline=pipeline))
+        tr = Trainer(scene, cfgs, str(tmp_path / str(pipeline)),
+                     device=cuda, log_fn=lambda *a: None, tensorboard=False)
+        tr.train(iterations=12, test_iterations=(), save_iterations=())
+        runs.append(tr)
+    a, b = runs
+    assert a.state.params.xyz.is_cuda and a.max_instances > 512
+    assert (a.state.n_alive, a.max_instances) == (b.state.n_alive,
+                                                  b.max_instances)
+    for x, y in zip(list(a.state.params) + list(a.opt_state.mu),
+                    list(b.state.params) + list(b.opt_state.mu)):
+        assert torch.equal(x, y)

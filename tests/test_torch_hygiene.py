@@ -1,6 +1,7 @@
 """Port hygiene: rain_tpu_torch stands alone and defaults to the card.
 
-- No module of the port, and not chip_smoke.py, imports jax or rain_tpu.
+- No module of the port, not chip_smoke.py and not the helpers of tests/
+  that chip_smoke.py loads imports jax or rain_tpu.
 - Importing the port leaves jax and rain_tpu out of sys.modules.
 - An entry point called without ``device`` runs on the CUDA card; with no
   card it raises RuntimeError instead of carrying on on the CPU.
@@ -15,15 +16,22 @@ import numpy as np
 import pytest
 import torch
 
+from rain_tpu_torch import config as cfg_mod
 from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.data.dataset import SceneData
+from rain_tpu_torch.model import adam
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.train import checkpoint as ckpt
+from rain_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "rain_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
+# numpy and torch only: chip_smoke.py loads them by path
+SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
+                 ROOT / "tests" / "torch_trainer_trace.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -35,7 +43,8 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "rain_tpu")
 
 
-@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+@pytest.mark.parametrize("path", PORT_FILES + SMOKE_HELPERS,
+                         ids=lambda p: p.name)
 def test_port_module_imports_no_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -75,9 +84,17 @@ def _raw(n=4):
 def _entry_points(tmp_path):
     """Each entry point called without a device."""
     path = tmp_path / "g.ply"
-    ckpt.save_ply_snapshot(path, gmod.from_arrays(**_raw(), device="cpu"))
+    cpu_state = gmod.from_arrays(**_raw(), device="cpu")
+    ckpt.save_ply_snapshot(path, cpu_state)
+    npz = tmp_path / "c.npz"
+    ckpt.save_checkpoint(npz, cpu_state, adam.init(cpu_state.params), 1, 1.0)
     cam = Camera(uid=0, image_name="t", R=np.eye(3), T=np.zeros(3),
                  fovx=0.8, fovy=0.6, image=None, width=32, height=32)
+    pts = np.random.default_rng(1).normal(size=(8, 3)).astype(np.float32)
+    scene = SceneData(train_cameras=[cam], test_cameras=[], points=pts,
+                      colors=np.full((8, 3), 0.5, np.float32),
+                      nerf_radius=1.0, nerf_translate=np.zeros(3))
+    cfgs = cfg_mod.extract_all(cfg_mod.build_parser("t").parse_args([]))
     return {
         "from_arrays": lambda: gmod.from_arrays(**_raw()).params.xyz,
         "from_numpy": lambda: gmod.from_numpy(
@@ -89,11 +106,19 @@ def _entry_points(tmp_path):
         "load_ply_snapshot": lambda: ckpt.load_ply_snapshot(
             path).params.xyz,
         "render_inputs": lambda: cam.render_inputs()["world_view"],
+        "create_from_pcd": lambda: gmod.create_from_pcd(
+            pts, pts, sh_degree=3, capacity=16).params.xyz,
+        "load_checkpoint": lambda: ckpt.load_checkpoint(npz)[0].params.xyz,
+        "Trainer": lambda: Trainer(
+            scene, cfgs, str(tmp_path / "t"), log_fn=lambda *a: None,
+            tensorboard=False).state.params.xyz,
     }
 
 
 @pytest.mark.parametrize("name", ["from_arrays", "from_numpy",
-                                  "load_ply_snapshot", "render_inputs"])
+                                  "load_ply_snapshot", "render_inputs",
+                                  "create_from_pcd", "load_checkpoint",
+                                  "Trainer"])
 def test_entry_point_defaults_to_cuda(name, tmp_path):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
