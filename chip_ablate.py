@@ -1,22 +1,25 @@
-"""Ablate the kernels B1, B3 and B4 of rain_tpu_torch on one card.
+"""Ablate the kernels B1, B2, B3 and B4 of rain_tpu_torch on one card.
 
 Run from the repository root, with one CUDA card:
 
-    python3 chip_ablate.py [--parent DIR] [--out RECORD.json]
+    python3 chip_ablate.py [--parent DIR] [--b2-step FILE] [--out RECORD.json]
 
 Builds, beside the kernels of rain_tpu_torch/csrc, copies of expand.cu
-(B1), tile_render_fwd.cu (B3) and tile_render_bwd.cu (B4) with one design
-element taken out each: an exact text edit of the source, listed in
-VARIANTS, that fails if the text is not found. With --parent DIR it also
-builds expand.cu from DIR/rain_tpu_torch/csrc, a checkout of the commit
-before B1's redesign, and times binning.tile_sort beside that commit's
+(B1), reduce.cu (B2), tile_render_fwd.cu (B3) and tile_render_bwd.cu (B4)
+with one design element taken out each: an exact text edit of the source,
+listed in VARIANTS, that fails if the text is not found. With --parent DIR
+it also builds expand.cu and reduce.cu from DIR/rain_tpu_torch/csrc, a
+checkout of an earlier commit, and times binning.tile_sort beside a
 three-pass version (a gather, a zero pad, a concatenation). It takes the
-inputs that B1, B3 and B4 get in training step 0 of chip_smoke.py's main
-path (the 262k garden proxy at 1297x840), holds every variant's output to
-the plain version bit for bit (a few B4 variants sum in another order and
-are held to 1e-5 of each row's largest value), and times all variants in
-turns on the same inputs: the median over REPS rounds of CUDA events
-around one call behind a spin kernel, as chip_smoke.device_ms does. It
+inputs that B1–B4 get in training step 0 of chip_smoke.py's main path (the
+262k garden proxy at 1297x840), holds every variant's output to the plain
+version bit for bit (a few B4 variants sum in another order and are held
+to 1e-5 of each row's largest value), and times all variants in turns on
+the same inputs: the median over REPS rounds of CUDA events around one
+call behind a spin kernel, as chip_smoke.device_ms does. With --b2-step
+FILE (the b2_trainer_step.npz that chip_smoke.py --out writes: the tiles
+and M of B2's input at its Trainer step) it holds and times the B2
+variants again at those segments, on seeded random gradient columns. It
 prints the card's nvidia-smi line, each variant's ptxas line, resident
 blocks per SM and time, one JSON line per kernel and, last, {"ok": true};
 --out writes the record.
@@ -294,6 +297,22 @@ _B1_GLOBAL_WALK = """\
 
 """
 
+_B2_WARP_LOOP = """\
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5;
+    const int64_t p = lo + lane * step;
+    const bool above = p >= hi || exc[p] >= target;
+    const unsigned ballot = __ballot_sync(kFull, above);
+    if (ballot == 0u) {
+      lo += 31 * step + 1;
+    } else {
+      const int j = __ffs(ballot) - 1;
+      hi = lo + j * step < hi ? lo + j * step : hi;
+      if (j > 0) lo += (j - 1) * step + 1;
+    }
+  }
+"""
+
 # (variant, source, [(text, replacement), ...]); "full" is the source as
 # is. B3's heavy-first variant takes a tile order (the tiles by descending
 # range length); B4's 16-instance chunk sums 16 partial sums.
@@ -367,6 +386,81 @@ VARIANTS = [
     # no minimum of resident blocks for the register allocator
     ("b1_no_min_blocks", "expand", [
         ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 1;")]),
+    ("b2_full", "reduce", []),
+    # the chunk's owners by a plain binary search (20 dependent loads for
+    # 786k Gaussians), not by the warp's ballots
+    ("b2_serial_search", "reduce", [
+        (_B2_WARP_LOOP,
+         "  while (lo < hi) {\n"
+         "    const int64_t mid = (lo + hi) >> 1;\n"
+         "    if (exc[mid] >= target) {\n"
+         "      hi = mid;\n"
+         "    } else {\n"
+         "      lo = mid + 1;\n"
+         "    }\n"
+         "  }\n")]),
+    # the chunk staged by the whole block once the search is done, not by
+    # six warps while two search
+    ("b2_search_then_stage", "reduce", [
+        ("  if (warp >= 2)\n"
+         "    copy_rows<R>(sd, d, rows, m, i0, (int)(lmin(chunk_end, live) - "
+         "i0), vec,\n                 tid - 64, kThreads - 64);\n",
+         "  __syncthreads();\n"
+         "  copy_rows<R>(sd, d, rows, m, i0, (int)(lmin(chunk_end, live) - "
+         "i0), vec,\n               tid, kThreads);\n")]),
+    ("b2_scalar_copies", "reduce", [
+        ("  const bool vec = m % 4 == 0 && (uintptr_t)d % 16 == 0;\n",
+         "  const bool vec = false;\n")]),
+    # the carried segment read by its row threads from global memory, not
+    # staged by the block
+    ("b2_global_carry", "reduce", [
+        ("    __syncthreads();  // the previous piece is read\n"
+         "    copy_rows<R>(sd, d, rows, m, p, len, vec, tid, kThreads);\n"
+         "    __pipeline_commit();\n"
+         "    __pipeline_wait_prior(0);\n"
+         "    __syncthreads();\n"
+         "    if (tid < rows) {\n"
+         "      const float* row = sd + tid * kChunk;\n",
+         "    if (tid < rows) {\n"
+         "      const float* row = d + tid * m + p;\n")]),
+    ("b2_chunk_512", "reduce", [
+        ("constexpr int kChunk = 1024;", "constexpr int kChunk = 512;")]),
+    ("b2_chunk_2048", "reduce", [
+        ("constexpr int kChunk = 1024;", "constexpr int kChunk = 2048;")]),
+    # the 16-byte copies around L1 (cp.async.cg, as
+    # __pipeline_memcpy_async issues them), not through it
+    ("b2_copies_16_cg", "reduce", [
+        ("  asm volatile(\"cp.async.ca.shared.global [%0], [%1], 16;\\n\" "
+         "::\"r\"(\n"
+         "                   (unsigned)__cvta_generic_to_shared(dst)),\n"
+         "               \"l\"(src)\n"
+         "               : \"memory\");\n",
+         "  __pipeline_memcpy_async(dst, src, 16);\n")]),
+    # the searching warps wait for the instance count, so that a chunk
+    # past the live instances stops at once, not after its search
+    ("b2_exit_before_search", "reduce", [
+        ("  if (warp < 2) {\n    const int64_t g =\n",
+         "  if (warp < 2 && i0 < live) {\n    const int64_t g =\n")]),
+    # the tail blocks first in the grid, not after the chunk blocks
+    ("b2_tail_first", "reduce", [
+        ("  if (blockIdx.x >= n_chunks) {  // 5. a tail block\n"
+         "    const int64_t t0 = (blockIdx.x - n_chunks) * (int64_t)kTail;\n",
+         "  const int64_t n_tail = gridDim.x - n_chunks;\n"
+         "  if (blockIdx.x < n_tail) {  // 5. a tail block\n"
+         "    const int64_t t0 = blockIdx.x * (int64_t)kTail;\n"),
+        ("  const int64_t i0 = (int64_t)blockIdx.x * kChunk;\n",
+         "  const int64_t i0 = (int64_t)(blockIdx.x - n_tail) * kChunk;\n")]),
+    # a short carried rest staged like a long one, not read from global
+    # memory by the row threads
+    ("b2_always_staged_carry", "reduce", [
+        ("  if (c_end - chunk_end <= kShortCarry) {\n",
+         "  if (false) {\n")]),
+    ("b2_no_min_blocks", "reduce", [
+        ("constexpr int kMinBlocks = 5;", "constexpr int kMinBlocks = 1;")]),
+    ("b2_min_blocks_4", "reduce", [
+        ("constexpr int kMinBlocks = 5;", "constexpr int kMinBlocks = 4;")]),
+    ("b2_min_blocks_6", "reduce", [
+        ("constexpr int kMinBlocks = 5;", "constexpr int kMinBlocks = 6;")]),
     ("fwd_full", "tile_render_fwd", []),
     ("fwd_no_skip", "tile_render_fwd", [
         ("        if (power < q1.z) continue;\n", "")]),
@@ -476,6 +570,7 @@ HEADER_EDITS = {"fwd_strips": _STRIPS, "bwd_strips": _STRIPS}
 # version: held to 1e-5 of each row's largest value, not bit for bit
 REORDERED = {"bwd_direct_terms", "bwd_chunk16", "bwd_strips"}
 OCCUPANCY = {"b1": "rain_expand_occupancy",
+             "b2": "rain_reduce_occupancy",
              "fwd": "rain_composite_forward_occupancy",
              "bwd": "rain_composite_backward_occupancy"}
 
@@ -552,8 +647,8 @@ def blocks_per_sm(lib, name):
 
 
 def step0_inputs():
-    """B1's (args, kwargs), B3's and B4's inputs in training step 0 of
-    chip_smoke's main path."""
+    """B1's (args, kwargs), B3's, B4's and B2's inputs in training step 0
+    of chip_smoke's main path."""
     arrays = smoke.garden_proxy_state_arrays()
     state = gmod.from_arrays(**arrays, device=smoke.DEV)
     cam = smoke.pose(0).render_inputs()
@@ -562,7 +657,22 @@ def step0_inputs():
     _, seen = smoke.train(state0, adam_mod.init(state0.params), cam,
                           gt.render, smoke.WIDTH, smoke.HEIGHT)
     b1_args, b3_args = smoke.kernel_inputs(seen, smoke.WIDTH, smoke.HEIGHT)
-    return b1_args, b3_args, seen["composite_bwd_B4"][0]
+    return (b1_args, b3_args, seen["composite_bwd_B4"][0],
+            seen["reduce_B2"][:3])
+
+
+def trainer_step_b2_inputs(path):
+    """B2's inputs with the segments of chip_smoke.py's Trainer step (the
+    tiles and M in `path`) and seeded random gradient columns."""
+    with np.load(path) as z:
+        tiles = torch.from_numpy(z["tiles"]).to(smoke.DEV)
+        m = int(z["m"])
+    exc = torch.cumsum(tiles, 0) - tiles
+    gen = torch.Generator(device=smoke.DEV)
+    gen.manual_seed(0)
+    d = torch.randn((tile_render.GRAD_ROWS, m), generator=gen,
+                    device=smoke.DEV)
+    return d, exc, tiles
 
 
 def time_in_turns(calls):
@@ -584,7 +694,7 @@ def time_in_turns(calls):
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
-def main(parent, out):
+def main(parent, b2_step, out):
     if not torch.cuda.is_available():
         sys.exit("chip_ablate: no CUDA device is available")
     smi = subprocess.run(
@@ -606,10 +716,11 @@ def main(parent, out):
     if parent is not None:
         pcsrc = parent / "rain_tpu_torch" / "csrc"
         jobs["b1_parent"] = ((pcsrc / "expand.cu").read_text(), pcsrc)
+        jobs["b2_parent"] = ((pcsrc / "reduce.cu").read_text(), pcsrc)
     libs = build(jobs)
     print(f"build: {time.perf_counter() - t0:.2f} s")
 
-    (b1_in, b1_kw), b3_args, b4_args = step0_inputs()
+    (b1_in, b1_kw), b3_args, b4_args, b2_in = step0_inputs()
     pack, starts, ends, toff, grid_x = b3_args
     m, n_tiles = pack.shape[1], starts.shape[0]
     tiles, g_tiles = b4_args[5], b4_args[6]
@@ -695,6 +806,27 @@ def main(parent, out):
     b4["zero_fill_16xM"] = lambda: torch.zeros_like(pack)
     b1 = {name: b1_call(libs[name][0])
           for name in libs if name.startswith("b1_")}
+
+    def b2_call(lib, d, exc, tiles_n):
+        """B2's variants and its first design take the same C arguments."""
+        f = entry(lib, "rain_reduce_instances", (
+            p, i32, ctypes.c_int64, p, p, ctypes.c_int64, p))
+
+        def call():
+            o = torch.empty((d.shape[0], exc.shape[0]), device=smoke.DEV)
+            if f(dev, stream(), d.data_ptr(), d.shape[0], d.shape[1],
+                 exc.data_ptr(), tiles_n.data_ptr(), exc.shape[0],
+                 o.data_ptr()) != 0:
+                raise RuntimeError("B2 variant failed")
+            return o
+        return call
+
+    b2_inputs = {"step0": b2_in}
+    if b2_step is not None:
+        b2_inputs["trainer_step"] = trainer_step_b2_inputs(b2_step)
+    b2 = {where: {name: b2_call(libs[name][0], *args)
+                  for name in libs if name.startswith("b2_")}
+          for where, args in b2_inputs.items()}
     want1 = expand_ops.expand_instances_torch(*b1_in, **b1_kw)
     # the tile sort's pack, in one pass (binning.tile_sort) and in three
     # (the commit before), on B1's output, with and without the depth row
@@ -706,6 +838,16 @@ def main(parent, out):
              for depth in (True, False)}
 
     checks = {}
+    for where, calls in b2.items():
+        want2 = expand_ops.reduce_instances_torch(*b2_inputs[where])
+        for name, f in calls.items():
+            got = f()
+            torch.cuda.synchronize()
+            if not smoke.bitwise_equal(got, want2):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at {where}")
+            checks[f"{name}@{where}"] = "bitwise equal"
+        del want2
     for name, f in b1.items():
         cols, keys = f()
         torch.cuda.synchronize()
@@ -740,14 +882,18 @@ def main(parent, out):
             checks[name] = "bitwise equal"
     ms = {"B1": time_in_turns(b1), "tile_sort": time_in_turns(sorts),
           "B3": time_in_turns(b3), "B4": time_in_turns(b4)}
+    for where, calls in b2.items():
+        ms[f"B2@{where}"] = time_in_turns(calls)
     record = {"card": smi, "reps": REPS, "checks": checks, "ms": ms,
               "ptxas": {k: v[1] for k, v in libs.items()},
               "blocks_per_sm": {
                   k: blocks_per_sm(lib, OCCUPANCY[k.split("_")[0]])
                   for k, (lib, _) in libs.items()}}
     for k, lines in record["ptxas"].items():
+        check = "; ".join(f"{c}: {v}" for c, v in checks.items()
+                          if c == k or c.startswith(k + "@"))
         print(f"{k}: {' | '.join(lines)}; blocks/SM "
-              f"{record['blocks_per_sm'][k]}; {checks.get(k, '')}")
+              f"{record['blocks_per_sm'][k]}; {check}")
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(record, indent=1))
@@ -760,8 +906,12 @@ def main(parent, out):
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path,
-                        help="a checkout of the commit before B1's redesign")
+                        help="a checkout of an earlier commit, whose B1 and "
+                             "B2 are timed beside these")
+    parser.add_argument("--b2-step", type=Path,
+                        help="chip_smoke.py's b2_trainer_step.npz: time B2 "
+                             "at those segments too")
     parser.add_argument("--out", type=Path,
                         help="write the run's record to this JSON file")
     args = parser.parse_args()
-    main(args.parent, args.out)
+    main(args.parent, args.b2_step, args.out)

@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    count, M = 786,431, no instance, no Gaussian, N = 2^21 + 3. Each is
    held against the plain version bit for bit (signed zeros and NaNs
    included), with NaN in the allocator's cache first so that a column
-   the kernel failed to write shows.
+   the kernel failed to write shows. B2 (reduce_instances) the same way at
+   its edge cases (tests/torch_reduce_cases.py): a segment over three
+   chunks, one of the whole grid, segments across every chunk boundary, a
+   culled tail, a run of empty segments, segments clipped by M, a ragged
+   M, no instance, no Gaussian.
 2. The garden-proxy 262k scene of bench.py (262,144 Gaussians, SH degree
    3 with random f_rest) is saved with save_ply_snapshot and loaded onto
    the card with load_ply_snapshot. Each forward kernel's output in a
@@ -87,12 +91,17 @@ Phases, in order; any failure exits non-zero before the result lines:
    growth (the state's) and retried step, tiers and instance counts of
    every step, n_alive per round, the device's busy time per iteration
    and its idle share over B's profiled window (busy time over that
-   window's host-clock time), peak memory and the synchronising calls of
-   one step.
+   window's host-clock time), peak memory, the synchronising calls of one
+   step and of one bucketed step with the file:line of each (sync debug
+   mode), the report frames rendered again because the training tier
+   could not hold them, and B2's segments at the Trainer step (length
+   mean, p99 and max, the warp imbalance of a thread per row and
+   Gaussian, the segments carried past their chunk).
 
 It prints the nvidia-smi line, one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line; with --out it also writes every
-number it took to that JSON file.
+number it took to that JSON file, and B2's tiles and M at the Trainer step
+to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
 """
 
 import argparse
@@ -504,9 +513,11 @@ def compare_backward(seen, what):
 
 
 def occupancy(lib):
-    """Resident blocks per SM of B1 or a compositor kernel (its C entry
-    rain_expand_occupancy or rain_composite_{forward,backward}_occupancy)."""
+    """Resident blocks per SM of a kernel (its C entry
+    rain_{expand,reduce}_occupancy or
+    rain_composite_{forward,backward}_occupancy)."""
     entry = {"expand": "rain_expand_occupancy",
+             "reduce": "rain_reduce_occupancy",
              "tile_render_fwd": "rain_composite_forward_occupancy",
              "tile_render_bwd": "rain_composite_backward_occupancy"}[lib]
     blocks = ctypes.c_int(0)
@@ -546,6 +557,34 @@ def b1_edge_cases():
         print(f"B1 {name} (N={n}, M={m}, {total} instances): bitwise equal "
               f"to its plain version")
         seen[name] = (n, m, total)
+    return seen
+
+
+def b2_edge_cases():
+    """B2 against its plain version at the edge cases of
+    tests/torch_reduce_cases.py, bit for bit, at the main path's N and M
+    unless the case sets them, with NaN in the allocator's cache first so
+    that an output element the kernel failed to write shows. Returns
+    {case: (N, M, instances, longest segment)}."""
+    cases = tests_module("torch_reduce_cases")
+    seen = {}
+    for name in cases.CASES:
+        d, exc, tiles = (a.to(DEV) for a in cases.reduce_case(
+            name, N_GAUSS, MAX_INSTANCES))
+        n, m = exc.shape[0], d.shape[1]
+        junk = torch.full((cases.ROWS * n + 8192,), float("nan"),
+                          device=DEV)
+        del junk
+        got = expand_ops.reduce_instances(d, exc, tiles)
+        want = expand_ops.reduce_instances_torch(d, exc, tiles)
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"B2 differs from its plain version in "
+                                 f"case {name} (N={n}, M={m})")
+        total = int(tiles.sum()) if n else 0
+        longest = int(tiles.max()) if n else 0
+        print(f"B2 {name} (N={n}, M={m}, {total} instances, longest "
+              f"segment {longest}): bitwise equal to its plain version")
+        seen[name] = (n, m, total, longest)
     return seen
 
 
@@ -677,6 +716,9 @@ def trainer_step_kernels(seen, width, height, max_instances, state):
     errs["reduce_instances"], errs["composite_backward"], b2_scale = \
         compare_backward(seen, what)
     kernels, work = step_kernels(seen, width, height, max_instances)
+    _, exc, tiles, _ = seen["reduce_B2"]
+    segs = segment_stats(exc, tiles, max_instances, state.n_alive)
+    print(f"B2 segments at the Trainer step: {json.dumps(segs)}")
     rows = []
     for name, (call, _, library, nbytes, ops) in kernels.items():
         bound_ms, bound_by = bound(nbytes, ops)
@@ -689,7 +731,8 @@ def trainer_step_kernels(seen, width, height, max_instances, state):
     print("trainer step kernels (ms, bound ms): " + json.dumps(
         {r["name"]: [r["ms"], r["bound_ms"]] for r in rows}))
     return {"n_alive": state.n_alive, "capacity": state.capacity,
-            "work": work, "b2_max_abs_per_row": b2_scale, "kernels": rows}
+            "work": work, "b2_max_abs_per_row": b2_scale,
+            "b2_segments": segs, "kernels": rows}
 
 
 class KernelCapture:
@@ -701,6 +744,7 @@ class KernelCapture:
     def __init__(self, after_capacity):
         self.after = after_capacity
         self.result = None
+        self.b2_tiles = None   # B2's tiles and M there, for chip_ablate.py
 
     def wrap(self, train_step):
         def wrapped(state, opt, *a, **kw):
@@ -712,6 +756,8 @@ class KernelCapture:
                 self.result = trainer_step_kernels(
                     seen, kw["width"], kw["height"], kw["max_instances"],
                     state)
+                self.b2_tiles = (seen["reduce_B2"][2].cpu().numpy(),
+                                 kw["max_instances"])
             return out
         return wrapped
 
@@ -776,8 +822,12 @@ def live_rows(tr):
 
 
 def count_syncs(fn):
-    """The number of synchronising CUDA calls that fn makes (PyTorch's
-    sync debug mode warns once per call)."""
+    """The synchronising CUDA calls that fn makes (PyTorch's sync debug
+    mode warns once per call): (their number, the file:line of the Python
+    frame that made each). Only the warnings of a synchronising call count:
+    the mode's own notice, the first time it is set, that it is a
+    prototype feature that may miss some synchronising operations does
+    not."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -786,7 +836,41 @@ def count_syncs(fn):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    return len(sites), sites
+
+
+def segment_stats(exc, tiles, m, n_alive, chunk=1024):
+    """B2's segments at a step: the instances per live Gaussian, the length
+    of the non-empty segments (mean, p99, max), for a kernel with one
+    thread per row and Gaussian (a warp per 32 consecutive Gaussians of a
+    row) the mean over warps of the longest segment over the mean one, and
+    for csrc/reduce.cu (chunks of 1024 instances) the segments that run
+    past their first chunk, the instances they carry on over and the
+    longest carry."""
+    end = torch.clamp(exc + tiles, max=m)
+    length = torch.clamp(end - exc, min=0)
+    live = int(length.sum())
+    nz = length[length > 0].double()
+    pad = (-length.shape[0]) % 32
+    warps = torch.cat([length, length.new_zeros(pad)]).view(-1, 32).double()
+    mean = warps.mean(dim=1)
+    ratio = warps.max(dim=1).values[mean > 0] / mean[mean > 0]
+    first = exc // chunk
+    carried = (length > 0) & ((end - 1) // chunk > first)
+    carry = (end - (first + 1) * chunk)[carried]
+    return {
+        "instances": live, "with_instances": int(nz.numel()),
+        "per_alive": live / max(n_alive, 1),
+        "mean": float(nz.mean()) if nz.numel() else 0.0,
+        "p99": float(torch.quantile(nz, 0.99)) if nz.numel() else 0.0,
+        "max": int(length.max()) if length.numel() else 0,
+        "row_thread_warp_max_over_mean":
+            float(ratio.mean()) if ratio.numel() else 0.0,
+        "carried_segments": int(carried.sum()),
+        "carried_instances": int(carry.sum()),
+        "longest_carry": int(carry.max()) if carry.numel() else 0}
 
 
 def trainer_card_vs_cpu(arrays):
@@ -822,8 +906,11 @@ def trainer_card_vs_cpu(arrays):
     return ic._asdict()
 
 
-def trainer_phase(arrays):
-    """The Trainer loop at full width (phase 7). Returns its record."""
+def trainer_phase(arrays, out=None):
+    """The Trainer loop at full width (phase 7). Returns its record; with
+    ``out`` (a directory) it also writes there the tiles of B2's input at
+    the Trainer step where the kernels are held (b2_trainer_step.npz, for
+    chip_ablate.py --b2-step)."""
     scene = trainer_scene(arrays)
     rec = {"nerf_radius": scene.nerf_radius,
            "card_vs_cpu_densify": trainer_card_vs_cpu(arrays)}
@@ -867,13 +954,22 @@ def trainer_phase(arrays):
             held_mib = held / 2**20
         a = loop_summary(trace_a)
         steps, kept = a["steps"], a["kept"]
-        n_frames = len(scene.test_cameras) + 5    # the report at 60
-        want = {"expand_instances": len(steps) + n_frames,
-                "composite_forward": len(steps) + n_frames,
+        # the report at 60, and each of its views rendered again because
+        # the training tier could not hold it
+        n_frames = len(scene.test_cameras) + 5
+        rerenders = tr.report_rerenders
+        again = sum(r[0] == TRAINER_ITERS for r in rerenders)
+        want = {"expand_instances": len(steps) + n_frames + again,
+                "composite_forward": len(steps) + n_frames + again,
                 "composite_backward": len(steps),
                 "reduce_instances": len(steps)}
         print(f"trainer: launches {launches} for {len(steps)} dispatched "
               f"steps and {n_frames} report frames")
+        print(f"trainer: {len(rerenders)} report frames rendered again at a "
+              f"tier that holds them: {rerenders}")
+        if any(r[3] <= r[2] for r in rerenders):
+            raise AssertionError(f"a report re-render at no higher tier: "
+                                 f"{rerenders}")
         if launches != want:
             raise AssertionError(f"expected launches {want}")
         if not a["retries"]:
@@ -904,11 +1000,29 @@ def trainer_phase(arrays):
         cam_in = cam.render_inputs(DEV)
         gt = torch.from_numpy(cam.image).to(DEV)
         # one step as the Trainer takes it (sh_degree 0, the active degree
-        # under ours_new); the Trainer's flag read is one more wait
-        sync_count = count_syncs(lambda: step.train_step(
-            tr.state, tr.opt_state, cam_in, gt, tr.background, tr.low_pass,
-            XYZ_LR, width=WIDTH, height=HEIGHT, sh_degree=0,
-            max_instances=tr.max_instances, opt_cfg_leaves=OPT_LEAVES))
+        # under ours_new), and one bucketed to the 16-pixel tile grid with
+        # its loss masked to the true size; the Trainer's flag read is one
+        # more wait
+        bw, bh = -(-WIDTH // 16) * 16, -(-HEIGHT // 16) * 16
+        gt_bucket = torch.zeros((3, bh, bw), device=DEV)
+        gt_bucket[:, :HEIGHT, :WIDTH] = gt
+
+        def sync_step(size, target, real_wh):
+            step.train_step(
+                tr.state, tr.opt_state, cam_in, target, tr.background,
+                tr.low_pass, XYZ_LR, width=size[0], height=size[1],
+                sh_degree=0, max_instances=tr.max_instances,
+                opt_cfg_leaves=OPT_LEAVES, real_wh=real_wh)
+
+        syncs = {
+            "exact": count_syncs(lambda: sync_step((WIDTH, HEIGHT), gt,
+                                                   None)),
+            "bucketed": count_syncs(lambda: sync_step(
+                (bw, bh), gt_bucket, (WIDTH, HEIGHT)))}
+        print(f"trainer: synchronising calls per train_step: "
+              f"{json.dumps(syncs)}")
+        if any(n for n, _ in syncs.values()):
+            raise AssertionError(f"train_step waits for the card: {syncs}")
         iter_ms = a["iteration_ms"]
         rec.update({
             "knn_ms": knn_ms, "init_report": r0, "final_report": r60,
@@ -921,8 +1035,11 @@ def trainer_phase(arrays):
             "host_ms_pipeline1": quartiles([iter_ms[i] for i in HOST_ITERS]),
             "host_ms_pipeline1_all": iter_ms,
             "peak_mib": peak_mib, "held_mib_before_loop": held_mib,
-            "syncs_per_step": sync_count})
-        del tr, ply, cam_in, gt
+            "syncs_per_step": syncs["exact"][0],
+            "syncs_per_bucketed_step": syncs["bucketed"][0],
+            "sync_sites": {k: v[1] for k, v in syncs.items()},
+            "report_rerenders": rerenders})
+        del tr, ply, cam_in, gt, gt_bucket
 
         # B: the same seed, pipelined, to 25: profiled over 10 iterations,
         # and B1-B4 held against their plain versions at iteration 21, the
@@ -941,6 +1058,10 @@ def trainer_phase(arrays):
         if capture.result is None:
             raise AssertionError("no step ran after the capacity grew")
         rec["trainer_step_kernels"] = capture.result
+        if out is not None:
+            tiles_np, m_step = capture.b2_tiles
+            out.mkdir(parents=True, exist_ok=True)
+            np.savez(out / "b2_trainer_step.npz", tiles=tiles_np, m=m_step)
         got = dict(zip(
             [f"params.{f}" for f in gmod.GaussianParams._fields] +
             [f"mu.{f}" for f in gmod.GaussianParams._fields] +
@@ -1008,13 +1129,14 @@ def trainer_phase(arrays):
         "final_n_alive", "final_capacity", "host_ms_pipeline1",
         "host_ms_pipeline0", "device_busy_ms_per_iter",
         "profiled_wall_ms_per_iter", "device_idle_share", "peak_mib",
-        "syncs_per_step")}
+        "syncs_per_step", "syncs_per_bucketed_step")}
     summary.update(
         psnr=[r0["test"]["psnr"], r60["test"]["psnr"]],
         rounds_ms=[r["ms"] for r in rec["rounds"]],
         n_alive=[r["info"]["n_alive"] for r in rec["rounds"]],
         growth_ms=[g["ms"] for g in rec["growths"]],
-        retry_ms=[r["ms"] for r in rec["retries"]])
+        retry_ms=[r["ms"] for r in rec["retries"]],
+        report_rerenders=len(rec["report_rerenders"]))
     print("trainer: " + json.dumps(summary))
     return rec
 
@@ -1043,11 +1165,13 @@ def main(out: Path | None = None):
         for line in lines:
             print(f"  {name}: {line}")
     blocks_per_sm = {name: occupancy(name) for name in
-                     ("expand", "tile_render_fwd", "tile_render_bwd")}
+                     ("expand", "reduce", "tile_render_fwd",
+                      "tile_render_bwd")}
     print(f"resident blocks per SM: {blocks_per_sm}")
     if len(list(_build.CSRC.glob("*.cu"))) != 4:
         raise AssertionError("expected four kernel sources")
     b1_cases = b1_edge_cases()
+    b2_cases = b2_edge_cases()
 
     # --- 2. the scene, and each forward kernel against its plain version -
     arrays = garden_proxy_state_arrays()
@@ -1277,11 +1401,12 @@ def main(out: Path | None = None):
     work["b2_max_abs_per_row"] = b2_scale
     # --- 7. the Trainer loop -----------------------------------------------
     del ts, seen0, step0_kernels, calls, pack
-    trainer_rec = trainer_phase(arrays)
+    trainer_rec = trainer_phase(arrays, out.parent if out else None)
 
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
+        "b2_cases": b2_cases,
         "render": {
             "frame_ms_main_path": frame_ms,
             "frame_ms_median": frame[0], "frame_ms_quartiles": frame[1],

@@ -69,8 +69,11 @@ def add_densification_stats(state: GaussianState, tap_grad: torch.Tensor,
     visible Gaussians (radii > 0).
     """
     vis = radii > 0
-    scale = torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
-                         device=tap_grad.device)
+    # two fills, not a copy of host values (torch.tensor, or assigning a
+    # Python number to an element), which would wait for the device
+    scale = torch.full((2,), 0.5 * width, dtype=torch.float32,
+                       device=tap_grad.device)
+    scale[1:].fill_(0.5 * height)
     s = tap_grad * scale[None, :]
     g = torch.sqrt(torch.sum(s * s, dim=-1))
     return state._replace(

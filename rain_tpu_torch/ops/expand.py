@@ -27,7 +27,10 @@ plain version (``expand_instances_torch``, ``reduce_instances_torch``); a
 CUDA tensor launches the kernel of ``csrc/expand.cu`` or ``csrc/reduce.cu``.
 Kernel B1 expands each block of 1024 consecutive instances from the
 window of depth-ordered Gaussians that owns them, whose offsets and rects
-it stages in shared memory.
+it stages in shared memory. Kernel B2 takes the same chunks the other way:
+each block stages its 1024 instances' rows in shared memory and sums the
+segments that start there, carrying on past the chunk for the one segment
+that runs over it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from rain_tpu_torch import _build
 
 ROWS = 10
+REDUCE_MAX_ROWS = 16    # kernel B2's limit (csrc/reduce.cu:kMaxRows)
 
 
 def _check(table, tiles, offs, rect_w, rect_base, max_instances):
@@ -146,7 +150,8 @@ def reduce_instances(d_rank: torch.Tensor, exc: torch.Tensor,
 
     Returns [rows, N] float32: column g = the sum of d_rank's columns
     ``[exc[g], min(exc[g] + tiles[g], M))`` taken in order from 0.0. A CPU
-    tensor runs the plain version; a CUDA tensor launches kernel B2.
+    tensor runs the plain version; a CUDA tensor launches kernel B2, which
+    takes at most 16 rows and writes every element of its output.
     """
     if d_rank.dtype != torch.float32 or d_rank.dim() != 2 or \
             not d_rank.is_contiguous():
@@ -164,6 +169,9 @@ def reduce_instances(d_rank: torch.Tensor, exc: torch.Tensor,
     if d_rank.device.type != "cuda":
         raise ValueError(f"no reduction for device {d_rank.device}")
     rows, m = d_rank.shape
+    if rows > REDUCE_MAX_ROWS:
+        raise ValueError(f"kernel B2 takes at most {REDUCE_MAX_ROWS} rows, "
+                         f"got {rows}")
     out = torch.empty((rows, n), dtype=torch.float32, device=d_rank.device)
     f = _build.kernel("reduce", "rain_reduce_instances", (
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,

@@ -121,8 +121,13 @@ def masked_training_loss(image, gt, real_w: int, real_h: int,
             (torch.arange(bw, device=dev) < real_w)[None, :])
     img = image * mask[None]
     gt = gt * mask[None]
-    n_pix = (3.0 * torch.tensor(real_h, dtype=torch.float32, device=dev) *
-             torch.tensor(real_w, dtype=torch.float32, device=dev))
+    # 3·h·w rounded as the f32 products 3·h, then ·w, made on the host and
+    # filled on the device: a copy from host memory would wait for it. The
+    # divisor stays a device tensor: a CUDA tensor divided by a host scalar
+    # is multiplied by its reciprocal, which can round another way
+    n_pix = torch.full((), float(np.float32(3.0) * np.float32(real_h) *
+                                 np.float32(real_w)),
+                       dtype=torch.float32, device=dev)
     ll1 = torch.sum(torch.abs(img - gt)) / n_pix
     # pad pixels have ssim_map == 1 (0/0 regularised): mask before the sum
     sm = ssim_map(img, gt)[0]

@@ -92,8 +92,10 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
         on_stage("densify_stats", state)
 
     # f32 learning rates, as the JAX step's traced leaves: features_rest's
-    # is feature_lr / 20 in f32
-    lr = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+    # is feature_lr / 20 in f32. Each is a device fill, which rounds the
+    # float to f32 as torch.tensor(v, dtype=float32) does but, unlike a
+    # copy from pageable host memory, does not wait for the device
+    lr = {k: torch.full((), v, dtype=torch.float32, device=dev)
           for k, v in opt_cfg_leaves.items()}
     lrs = gmod.GaussianParams(
         xyz=xyz_lr,

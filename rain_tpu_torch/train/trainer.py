@@ -61,6 +61,19 @@ def _next_instance_tier(m: int) -> int:
     return 4 * p
 
 
+def _fitting_tier(m: int, needed: int) -> int:
+    """The first tier of the ladder above m that holds ``needed``
+    instances (at least the next one), within MAX_INSTANCE_TIER."""
+    m = _next_instance_tier(m)
+    while m < needed:
+        m = _next_instance_tier(m)
+    if m > MAX_INSTANCE_TIER:
+        raise MemoryError(
+            f"instance tier {m} exceeds the 2^27 sanity bound — the scene "
+            f"configuration is pathological")
+    return m
+
+
 class _Verified(NamedTuple):
     """Host-side scalar results of a verified train step."""
     loss: float
@@ -173,6 +186,9 @@ class Trainer:
         self.densify_until = (self.opt_cfg.densify_until_iter +
                               self.rain.warmup_iter)  # train.py:38-39
         self.history = []
+        # (iteration, view, tier, re-render tier) of each report view that
+        # overflowed the training tier and was rendered again
+        self.report_rerenders = []
 
     # -- camera handling --------------------------------------------------
     def _camera_bundle(self, cam):
@@ -248,13 +264,7 @@ class Trainer:
         """Grow the instance tier; with the overflow step's reported
         instance count, jump straight to the first ladder tier that fits
         (each intermediate tier would cost a discarded step)."""
-        self.max_instances = _next_instance_tier(self.max_instances)
-        while self.max_instances < min_needed:
-            self.max_instances = _next_instance_tier(self.max_instances)
-        if self.max_instances > MAX_INSTANCE_TIER:
-            raise MemoryError(
-                f"instance tier {self.max_instances} exceeds the 2^27 "
-                f"sanity bound — the scene configuration is pathological")
+        self.max_instances = _fitting_tier(self.max_instances, min_needed)
         self.log(f"[cap] growing instance buffer -> {self.max_instances}")
 
     # -- one optimization step ---------------------------------------------
@@ -542,11 +552,36 @@ class Trainer:
             self.log(f"[profile] trace complete -> {trace}")
 
     # -- evaluation (training_report, train.py:179-224) --------------------
+    def _report_render(self, iteration, cam, cam_arrays):
+        """eval_render of a report view, never truncated: rendered at the
+        training tier and, if that overflows, again at the first ladder
+        tier that holds the view's instances (rain_tpu scores the
+        truncated image, rain_tpu/train/trainer.py:648-653). The training
+        tier stays as it is, so the training schedule is rain_tpu's."""
+        def render(tier):
+            return step_mod.eval_render(
+                self.state, cam_arrays, self.background, self.low_pass,
+                width=cam.width, height=cam.height,
+                sh_degree=self.model.sh_degree, max_instances=tier)
+
+        out = render(self.max_instances)
+        if not bool(out.overflow):
+            return out
+        n = int(out.num_instances)
+        again = _fitting_tier(self.max_instances, n)
+        self.report_rerenders.append(
+            (iteration, cam.image_name, self.max_instances, again))
+        self.log(f"[ITER {iteration}] report view {cam.image_name}: {n} "
+                 f"instances overflow the tier {self.max_instances}; "
+                 f"rendered again at {again}")
+        return render(again)    # the same view: again >= n, no overflow
+
     @torch.no_grad()
     def report(self, iteration):
         """PSNR, L1 and SSIM of the test cameras and of 5 training
-        cameras; LPIPS comes with eval/lpips.py (rain_tpu leaves the key
-        out without local weights too)."""
+        cameras, each rendered whole (``_report_render``); LPIPS comes
+        with eval/lpips.py (rain_tpu leaves the key out without local
+        weights too)."""
         configs = [("test", self.scene.test_cameras),
                    ("train", [self.scene.train_cameras[
                        i % len(self.scene.train_cameras)]
@@ -564,11 +599,7 @@ class Trainer:
                 # bucketed training pads the cached GT; eval renders at
                 # the exact camera size
                 gt = gt[:, :cam.height, :cam.width]
-                out = step_mod.eval_render(
-                    self.state, cam_arrays, self.background, self.low_pass,
-                    width=cam.width, height=cam.height,
-                    sh_degree=self.model.sh_degree,
-                    max_instances=self.max_instances)
+                out = self._report_render(iteration, cam, cam_arrays)
                 img = torch.clamp(out.render, 0.0, 1.0)
                 gtc = torch.clamp(gt, 0.0, 1.0)
                 if self.tb is not None and idx < 5:   # train.py:200-203

@@ -15,8 +15,11 @@ from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import tile_render
+from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.train import step
 from torch_expand_cases import CASES, expand_case
+from torch_reduce_cases import CASES as REDUCE_CASES
+from torch_reduce_cases import reduce_case
 
 torch.set_num_threads(1)
 
@@ -143,6 +146,90 @@ def test_b4_writes_every_element_of_its_output(cuda):
         assert not bool(torch.isnan(d_pack).any())
         assert torch.all(d_pack[tile_render.GRAD_ROWS:] == 0.0)
         assert torch.all(d_pack[:, int(ends[-1]):] == 0.0)
+
+
+@pytest.mark.parametrize("case", REDUCE_CASES)
+def test_b2_edge_cases_match_plain_version(cuda, case):
+    d, exc, tiles = (a.to(cuda) for a in reduce_case(case, 3000, 16_384))
+    got = expand_ops.reduce_instances(d, exc, tiles)
+    want = expand_ops.reduce_instances_torch(d, exc, tiles)
+    # bit for bit, signed zeros included: B2 sums in the plain order
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_b2_writes_every_element_of_its_output(cuda):
+    # B2's output is allocated with torch.empty: fill the allocator's
+    # cache with NaN first, so that an element B2 failed to write shows,
+    # on a step's inputs and on a tail of Gaussians with no instance
+    seen = {}
+    _train(cuda, seen=seen)
+    inputs = [seen["reduce_B2"][:3],
+              [a.to(cuda) for a in reduce_case("culled_tail", 3000, 16_384)]]
+    for d, exc, tiles in inputs:
+        for _ in range(3):
+            junk = torch.full((d.shape[0] * exc.shape[0] + 8192,),
+                              float("nan"), device=cuda)
+            del junk
+            out = expand_ops.reduce_instances(d, exc, tiles)
+            assert not bool(torch.isnan(out).any())
+            assert torch.equal(out, expand_ops.reduce_instances_torch(
+                d, exc, tiles))
+
+
+@pytest.mark.parametrize("real_wh", [None, (150, 100)])
+def test_train_step_makes_no_synchronising_call(cuda, real_wh):
+    """train_step queues its work and returns: no call in it waits for the
+    card (sync debug mode raises at any), bucketed or not."""
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    cam, bg = _camera(cuda), torch.zeros(3, device=cuda)
+    gt = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (3, H, W)).astype(np.float32)).to(cuda)
+    if real_wh is not None:
+        gt[:, real_wh[1]:] = 0.0
+        gt[:, :, real_wh[0]:] = 0.0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step.train_step(
+            state, opt, cam, gt, bg, 0.3, 1.6e-4, width=W, height=H,
+            sh_degree=3, max_instances=M, opt_cfg_leaves=OPT,
+            real_wh=real_wh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out[2].loss))
+
+
+def test_step_scalars_equal_host_copies(cuda):
+    """The device fills that replaced host copies in train_step hold the
+    same bits: the learning rates (and feature_lr / 20 on the card), the
+    statistics' NDC scale and the masked loss's pixel count."""
+    for v in list(OPT.values()) + [1.6e-4, 0.1, 1.0 / 3.0]:
+        old = torch.tensor(v, dtype=torch.float32, device=cuda)
+        new = torch.full((), v, dtype=torch.float32, device=cuda)
+        assert torch.equal(old.view(torch.int32), new.view(torch.int32))
+        assert torch.equal((old / 20.0).view(torch.int32),
+                           (new / 20.0).view(torch.int32))
+    tap = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1e-3, (500, 2)).astype(np.float32)).to(cuda)
+    radii = torch.ones(500, dtype=torch.int32, device=cuda)
+    for w, h in ((W, H), (1297, 840), (150, 100)):
+        old = torch.tensor([0.5 * w, 0.5 * h], dtype=torch.float32,
+                           device=cuda)
+        s = tap * old[None, :]
+        want = torch.sqrt(torch.sum(s * s, dim=-1))
+        st = densify_mod.add_densification_stats(
+            _state(cuda, n=500), tap, radii, w, h)
+        assert torch.equal(st.xyz_gradient_accum, want)
+        n_pix = (3.0 * torch.tensor(h, dtype=torch.float32, device=cuda) *
+                 torch.tensor(w, dtype=torch.float32, device=cuda))
+        img = torch.rand((3, 112, 160), device=cuda)
+        ref = torch.zeros_like(img)
+        mask = torch.zeros_like(img)
+        mask[:, :min(h, 112), :min(w, 160)] = 1.0
+        ll1 = torch.sum(torch.abs(img * mask - ref)) / n_pix
+        _, got = loss_ops.masked_training_loss(img, ref, w, h)
+        assert torch.equal(got, ll1)
 
 
 def test_train_step_on_card_is_bitwise_reproducible(cuda):

@@ -28,9 +28,10 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "rain_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py"]
 # numpy and torch only: chip_smoke.py loads them by path
 SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
+                 ROOT / "tests" / "torch_reduce_cases.py",
                  ROOT / "tests" / "torch_trainer_trace.py"]
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
