@@ -97,6 +97,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    could not hold them, and B2's segments at the Trainer step (length
    mean, p99 and max, the warp imbalance of a thread per row and
    Gaussian, the segments carried past their chunk).
+8. The CLIs at full width, with PIL made unimportable (so that nothing
+   on the path leans on it, whether the machine has it or not): a COLMAP
+   scene is written (one PINHOLE camera at 1297x840, 10 poses of phase
+   3's pan with the 262k proxy's renders as PNG images, its 262,144
+   means and colours as points3D.bin with a seeded error column), and rain_tpu_torch.scripts.train, .render and .metrics
+   run in this process through their main(argv). The train CLI takes 40
+   iterations from the SfM points (default preset: exact KNN, SH degree 3,
+   5 train and 5 test views), a report at 40, a checkpoint at 20 and a PLY
+   at 40; a second run resumes from the checkpoint and reaches 40. Checked:
+   the native COLMAP parser is used and equals the Python one; the scene
+   loads as written; the launch counters, set to 0 just before the train
+   CLI and read just after, count each kernel once per dispatched step
+   and B1 and B3 once more per report frame and re-render; the losses are
+   finite and fall from iteration 1 to 40; the provenance files, the PLY
+   and the resumed run; the render CLI writes 10 renders, gt, depth and
+   inferno depth PNGs (B1 and B3 once per frame and re-render); test view
+   0's PNG is the truncated eval_render of the loaded PLY bit for bit and
+   B3 on that frame its plain version's bits; results.json's PSNR is the
+   report's at 40 within what the PNG's truncation can move it. Recorded:
+   the native parser's cc build, points3D.bin parse times (native and
+   Python), PNG decode and encode times, each CLI's wall time, ms per
+   iteration over iterations 5-40, the render CLI's ms per view against
+   eval_render alone, each CLI's peak memory above what the process held.
 
 It prints the nvidia-smi line, one {"kernels": [...]} line and, last, the
 {"ok": true, "device": {...}} line; with --out it also writes every
@@ -108,6 +131,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -123,7 +147,10 @@ import torch
 
 from rain_tpu_torch import _build
 from rain_tpu_torch import config
-from rain_tpu_torch.data.cameras import Camera
+from rain_tpu_torch.data import colmap as colmap_io
+from rain_tpu_torch.data import images
+from rain_tpu_torch.data import ply as ply_io
+from rain_tpu_torch.data.cameras import Camera, fov2focal
 from rain_tpu_torch.data.dataset import SceneData, nerfpp_norm
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
@@ -134,6 +161,9 @@ from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
+from rain_tpu_torch.scripts import metrics as metrics_cli
+from rain_tpu_torch.scripts import render as render_cli
+from rain_tpu_torch.scripts import train as train_cli
 from rain_tpu_torch.train import checkpoint
 from rain_tpu_torch.train import step
 from rain_tpu_torch.train import trainer as trainer_mod
@@ -1141,6 +1171,263 @@ def trainer_phase(arrays, out=None):
     return rec
 
 
+# --- 8. the CLIs ---------------------------------------------------------
+CLI_VIEWS = 10                  # llffhold 2: 5 train and 5 test views
+CLI_ITERS = 40
+CLI_RESUME = 20                 # the checkpoint the second run starts from
+CLI_TIMED = range(5, CLI_ITERS)  # ms per iteration over iterations 5-40
+SCENE = tests_module("torch_colmap_scene")   # the COLMAP scene writer
+# One PNG step. A render PNG holds each value truncated to k/255, so the
+# metrics CLI's image is the report's less d in [0, 1/255) per value (the
+# ground truth round-trips exactly: k/255 in f32 times 255 truncates to k
+# for every k). By the triangle inequality a view's RMSE moves by less
+# than 1/255, so its PSNR by less than 20 log10(r / (r - 1/255)), r the
+# quantised view's RMSE; the mean over views by less than the largest.
+PNG_STEP = 1.0 / 255.0
+
+
+@contextlib.contextmanager
+def pil_blocked():
+    """PIL made unimportable (``sys.modules["PIL"] = None``), as on a
+    machine without it: what needs PIL fails here even where it is
+    installed."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "PIL" or k.startswith("PIL.")}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def cli_scene(root, arrays):
+    """Phase 8's COLMAP scene: one PINHOLE camera at 1297x840 with the
+    focal of phase 3's poses, 10 poses of its pan, each image the 262k
+    proxy's eval_render there (truncated to uint8, as the render CLI
+    writes), and the proxy's 262,144 means as points3D.bin with colours
+    round(clip(sh_dc_to_rgb(f_dc), 0, 1) * 255) and a seeded error column.
+    Returns the sparse directory."""
+    state = gmod.from_arrays(**arrays, device=DEV)
+    bg = torch.tensor(BG, device=DEV)
+    views = []
+    for k in range(CLI_VIEWS):
+        cam = pose(k)
+        out, _ = trainer_mod.render_whole(
+            state, cam.render_inputs(DEV), bg, LOW_PASS, width=WIDTH,
+            height=HEIGHT, sh_degree=SH_DEGREE, max_instances=MAX_INSTANCES)
+        img = torch.clamp(out.render, 0.0, 1.0).permute(1, 2, 0).cpu()
+        views.append((f"view_{k:02d}.png", cam.R.T, cam.T,
+                      (img.numpy() * 255).astype(np.uint8)))
+    rgb = np.round(np.clip(sh_dc_to_rgb(arrays["f_dc"][:, 0, :]), 0, 1)
+                   * 255).astype(np.uint8)
+    err = np.random.default_rng(8).random(N_GAUSS) * 2.0
+    cam = pose(0)
+    return SCENE.write_colmap_scene(
+        root, views, WIDTH, HEIGHT, fov2focal(cam.fovx, WIDTH),
+        fov2focal(cam.fovy, HEIGHT), arrays["xyz"], rgb, err)
+
+
+def cli_phase(arrays):
+    """The train, render and metrics CLIs on a COLMAP scene at full width,
+    with PIL blocked (phase 8). Returns its record."""
+    rec = {}
+    bg = torch.tensor(BG, device=DEV)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp, pil_blocked():
+        tmp = Path(tmp)
+        src, out, resumed = tmp / "scene", tmp / "out", tmp / "resumed"
+        sparse = cli_scene(src, arrays)
+
+        # the parsers (the native one built first, with cc) and the PNG
+        # codec, timed on the scene's files
+        parser, rec["native_build_ms"] = timed(colmap_io.parser)
+        if parser != "native":
+            raise AssertionError("the COLMAP parser is not the native one")
+        pts, rec["parse_native_ms"] = timed(colmap_io.read_points3d_binary,
+                                            sparse / "points3D.bin")
+        pts_py, rec["parse_python_ms"] = timed(
+            colmap_io._read_points3d_binary_py, sparse / "points3D.bin")
+        if not all(np.array_equal(a, b) for a, b in zip(pts, pts_py)):
+            raise AssertionError("the native and Python parsers differ")
+        pngs = sorted((src / "images").iterdir())
+        rec["png_decode_ms"] = quartiles(
+            [timed(images.load, p)[1] for p in pngs])
+        pixels = images.load(pngs[0])
+        rec["png_encode_ms"] = quartiles(
+            [timed(images.encode_png, pixels)[1] for _ in range(5)])
+
+        # the train CLI: SfM init, exact KNN, the default preset
+        argv = ["-s", str(src), "--num_cams", str(CLI_VIEWS // 2),
+                "--iterations", str(CLI_ITERS), "--test_iterations", "0",
+                str(CLI_ITERS), "--save_iterations", str(CLI_ITERS),
+                "--checkpoint_iterations", str(CLI_RESUME)]
+        torch.cuda.synchronize()
+        reset_counts()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with recorded() as trace:
+            tr, train_ms = timed(train_cli.main, argv + ["-m", str(out)])
+        launches = read_counts()
+        # peaks above what the process held before the CLI ran
+        rec["train_peak_mib"] = (torch.cuda.max_memory_allocated() -
+                                 held) / 2**20
+        rec["train_held_mib"] = held / 2**20
+        a = loop_summary(trace)
+        steps, kept = a["steps"], a["kept"]
+        cams = tr.scene.train_cameras + tr.scene.test_cameras
+        if tr.scene.points.shape != (N_GAUSS, 3) or len(cams) != CLI_VIEWS \
+                or any((c.width, c.height) != (WIDTH, HEIGHT) for c in cams):
+            raise AssertionError("the COLMAP scene did not load as written")
+        n_frames = len(tr.scene.test_cameras) + 5
+        again = len(tr.report_rerenders)
+        want = {"expand_instances": len(steps) + n_frames + again,
+                "composite_forward": len(steps) + n_frames + again,
+                "composite_backward": len(steps),
+                "reduce_instances": len(steps)}
+        print(f"cli: train launches {launches} for {len(steps)} dispatched "
+              f"steps, {n_frames} report frames and {again} re-renders")
+        if launches != want:
+            raise AssertionError(f"expected launches {want}")
+        losses = [s[3] for s in kept]
+        if len(kept) != CLI_ITERS or any(s[4] for s in kept) or not all(
+                math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"train CLI losses {losses}")
+        for name in ("input.ply", "cameras.json", "cfg_args.json",
+                     "command_line.txt", f"chkpnt{CLI_RESUME}.npz"):
+            if not (out / name).exists():
+                raise AssertionError(f"the train CLI wrote no {name}")
+        if len(json.loads((out / "cameras.json").read_text())) != \
+                CLI_VIEWS or not np.array_equal(ply_io.read_point_cloud(
+                    out / "input.ply")[0], tr.scene.points):
+            raise AssertionError("cameras.json or input.ply is wrong")
+        ply = out / "point_cloud" / f"iteration_{CLI_ITERS}" / \
+            "point_cloud.ply"
+        state = checkpoint.load_ply_snapshot(ply)
+        if state.n_alive != tr.state.n_alive:
+            raise AssertionError("the PLY does not load with n_alive rows")
+        report = json.loads((out / "log_file.txt").read_text()
+                            .splitlines()[-1])
+        iter_ms = a["iteration_ms"]
+        rec.update({
+            "train_cli_s": train_ms / 1e3, "launches_train": launches,
+            "steps_dispatched": len(steps), "report_frames": n_frames,
+            "report_rerenders": tr.report_rerenders, "losses": losses,
+            "retries": a["retries"], "final_tier": tr.max_instances,
+            "iteration_ms": quartiles([iter_ms[i] for i in CLI_TIMED]),
+            "report": report})
+        test_cam = tr.scene.test_cameras[0]
+        del tr
+
+        # the second run, from the checkpoint at 20
+        with recorded() as trace:
+            tr, rec["resume_cli_s"] = timed(
+                train_cli.main, argv + ["-m", str(resumed),
+                                        "--start_checkpoint",
+                                        str(out / f"chkpnt{CLI_RESUME}.npz")])
+        rec["resume_cli_s"] /= 1e3
+        r = loop_summary(trace, first=CLI_RESUME + 1)["kept"]
+        if tr.iteration != CLI_ITERS or len(r) != CLI_ITERS - CLI_RESUME \
+                or not all(math.isfinite(s[3]) for s in r):
+            raise AssertionError("the resumed train CLI did not reach 40")
+        rec["resumed_losses"] = [s[3] for s in r]
+        del tr
+
+        # the render CLI
+        torch.cuda.synchronize()
+        reset_counts()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        rerenders, render_ms = timed(render_cli.main, ["-m", str(out)])
+        render_launches = read_counts()
+        rec["render_peak_mib"] = (torch.cuda.max_memory_allocated() -
+                                  held) / 2**20
+        rec["render_held_mib"] = held / 2**20
+        frames = CLI_VIEWS + len(rerenders)
+        if render_launches != {"expand_instances": frames,
+                               "composite_forward": frames,
+                               "composite_backward": 0,
+                               "reduce_instances": 0}:
+            raise AssertionError(f"render CLI launches {render_launches}")
+        for kind in ("renders", "gt", "depth", "depth_inferno"):
+            n = sum(len(list((out / split / f"ours_{CLI_ITERS}" / kind)
+                             .iterdir())) for split in ("train", "test"))
+            if n != CLI_VIEWS:
+                raise AssertionError(f"the render CLI wrote {n} {kind}")
+        print(f"cli: render launches {render_launches}; {len(rerenders)} "
+              f"views rendered again at a tier that holds them: "
+              f"{rerenders}")
+
+        # test view 0: the PNG is the truncated eval_render of the PLY, bit
+        # for bit, and B3 on that frame is its plain version's bits
+        tier = max(8 * state.n_alive, 262_144)
+        cam_in = test_cam.render_inputs(DEV)
+        frame, second = trainer_mod.render_whole(
+            state, cam_in, bg, LOW_PASS, width=WIDTH, height=HEIGHT,
+            sh_degree=SH_DEGREE, max_instances=tier)
+        used = second or tier
+        seen = {}
+        again_frame = step.eval_render(
+            state, cam_in, bg, LOW_PASS, width=WIDTH, height=HEIGHT,
+            sh_degree=SH_DEGREE, max_instances=used,
+            on_stage=stage_hook(seen))
+        png = images.load(out / "test" / f"ours_{CLI_ITERS}" / "renders" /
+                          "00000.png")
+        want_png = (np.clip(frame.render.cpu().numpy(), 0, 1) * 255).astype(
+            np.uint8).transpose(1, 2, 0)
+        if not bitwise_equal(frame.render, again_frame.render) or \
+                not np.array_equal(png, want_png):
+            raise AssertionError("test view 0 differs from eval_render")
+        with torch.no_grad():
+            compare_tiles(seen["composite_B3"],
+                          tile_render.composite_forward_torch(
+                              *kernel_inputs(seen, WIDTH, HEIGHT, used)[1]),
+                          "cli: test view 0")
+        del seen, again_frame
+        frame_ms = host_ms(lambda: step.eval_render(
+            state, cam_in, bg, LOW_PASS, width=WIDTH, height=HEIGHT,
+            sh_degree=SH_DEGREE, max_instances=used), 5)
+        rec.update({"render_cli_s": render_ms / 1e3,
+                    "launches_render": render_launches,
+                    "render_rerenders": rerenders,
+                    "render_cli_ms_per_view": render_ms / CLI_VIEWS,
+                    "eval_render_ms": frame_ms[0],
+                    "render_tier": tier, "render_tier_used": used})
+
+        # the metrics CLI, against the report at 40
+        results, metrics_ms = timed(metrics_cli.main, ["-m", str(out)])
+        per_view = json.loads((out / "per_view.json").read_text())[
+            f"ours_{CLI_ITERS}"]["PSNR"]
+        psnr = results[str(out)][f"ours_{CLI_ITERS}"]["PSNR"]
+        rms = [10 ** (-p / 20) for p in per_view.values()]
+        tol = max(20 * math.log10(x / (x - PNG_STEP)) for x in rms)
+        print(f"cli: results.json PSNR {psnr:.6f}, report at {CLI_ITERS} "
+              f"{report['test']['psnr']:.6f}, tolerance {tol:.6f} dB")
+        if report["iteration"] != CLI_ITERS or \
+                not abs(psnr - report["test"]["psnr"]) <= tol:
+            raise AssertionError("results.json's PSNR is not the report's")
+        rec.update({"metrics_cli_s": metrics_ms / 1e3, "results": results,
+                    "psnr_tolerance_db": tol})
+    summary = {k: rec[k] for k in (
+        "native_build_ms", "parse_native_ms", "parse_python_ms",
+        "png_decode_ms",
+        "png_encode_ms", "train_cli_s", "resume_cli_s", "render_cli_s",
+        "metrics_cli_s", "iteration_ms", "render_cli_ms_per_view",
+        "eval_render_ms", "train_peak_mib", "render_peak_mib",
+        "train_held_mib", "render_held_mib",
+        "steps_dispatched", "final_tier")}
+    summary.update(loss=[rec["losses"][0], rec["losses"][-1]],
+                   report_rerenders=len(rec["report_rerenders"]),
+                   render_rerenders=len(rec["render_rerenders"]),
+                   psnr=[rec["report"]["test"]["psnr"], psnr])
+    print("cli: " + json.dumps(summary))
+    return rec
+
+
 def main(out: Path | None = None):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -1402,6 +1689,11 @@ def main(out: Path | None = None):
     # --- 7. the Trainer loop -----------------------------------------------
     del ts, seen0, step0_kernels, calls, pack
     trainer_rec = trainer_phase(arrays, out.parent if out else None)
+    # --- 8. the CLIs, with PIL blocked --------------------------------------
+    cli_rec = cli_phase(arrays)
+    for k in kernels:
+        k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
+                             "render": cli_rec["launches_render"][k["name"]]}
 
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
@@ -1439,6 +1731,7 @@ def main(out: Path | None = None):
         "dev_ms": dev_ms,
         "kernels": kernels,
         "trainer": trainer_rec,
+        "cli": cli_rec,
     }
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)

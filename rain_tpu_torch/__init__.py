@@ -5,8 +5,13 @@ reference) to PyTorch on an NVIDIA H100. Its layout mirrors the
 reference's, module by module:
 
   config   — the configuration groups and their command-line flags.
-  data/    — camera math, PLY interchange (byte-compatible files), the
-             scene container.
+  data/    — camera math, PLY interchange (byte-compatible files), image
+             files (PNG without PIL), COLMAP parsing, the COLMAP and
+             Blender scene loaders.
+  native/  — the C COLMAP parser, built with cc at first use.
+  eval/    — LPIPS.
+  viewer/  — the SIBR live-viewer bridge.
+  scripts/ — the train, render and metrics CLIs (``--device``).
   model/   — the fixed-capacity Gaussian state (with its KNN init and
              growth) and its activations, Adam, densification: the
              statistics, clone / split / prune, the opacity reset.
@@ -24,8 +29,8 @@ Entry points run on the CUDA device unless the caller passes
 path from its input's device: a CPU tensor runs the plain PyTorch version,
 a CUDA tensor launches the kernel.
 
-The package imports torch, numpy and the standard library only — never
-``jax`` or ``rain_tpu``.
+The package imports torch, numpy and the standard library (and PIL where
+a JPEG or a resize needs it) — never ``jax`` or ``rain_tpu``.
 """
 
 import torch

@@ -1,1 +1,2 @@
-"""Camera math and PLY interchange."""
+"""Camera math, image files, COLMAP parsing, PLY interchange, the scene
+loaders."""

@@ -1,11 +1,12 @@
 """PLY reading/writing with the 3DGS attribute schema.
 
-A copy of rain_tpu/data/ply.py (numpy only) for the trained-Gaussian
-schema: x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*
+A copy of rain_tpu/data/ply.py (numpy only): the point-cloud schema of
+the data loaders (x,y,z,nx,ny,nz,red,green,blue; dataset_readers.py:
+102-116) and the trained-Gaussian schema:
+x,y,z,nx,ny,nz,f_dc_*,f_rest_*,opacity,scale_*,rot_*
 (scene/gaussian_model.py:167-198); f_rest is flattened channel-major
 (transpose(1,2).flatten), so files interchange bit-for-bit with the JAX
-package and the reference's save_ply/load_ply. The point-cloud schema of
-the data loaders comes with the data slice.
+package and the reference's save_ply/load_ply.
 
 Supports binary_little_endian and ascii on read; writes binary.
 """
@@ -93,6 +94,32 @@ def write_ply(path, columns: list[tuple[str, np.ndarray]]):
     with open(path, "wb") as f:
         f.write("\n".join(lines).encode("ascii"))
         f.write(arr.tobytes())
+
+
+def read_point_cloud(path):
+    """(points [N,3], colors [N,3] in [0,1], normals [N,3]) — fetchPly."""
+    v = read_ply(path)
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    colors = np.stack([v["red"], v["green"], v["blue"]],
+                      axis=1).astype(np.float32) / 255.0
+    if "nx" in v:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]],
+                           axis=1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, colors, normals
+
+
+def write_point_cloud(path, xyz, rgb):
+    """storePly schema (dataset_readers.py:102-116); rgb in [0,255]."""
+    xyz = np.asarray(xyz, np.float32)
+    normals = np.zeros_like(xyz)
+    rgb = np.asarray(rgb).astype(np.uint8)
+    write_ply(path, [
+        ("x", xyz[:, 0]), ("y", xyz[:, 1]), ("z", xyz[:, 2]),
+        ("nx", normals[:, 0]), ("ny", normals[:, 1]), ("nz", normals[:, 2]),
+        ("red", rgb[:, 0]), ("green", rgb[:, 1]), ("blue", rgb[:, 2]),
+    ])
 
 
 def write_gaussians(path, xyz, f_dc, f_rest, opacity, scaling, rotation):

@@ -166,8 +166,10 @@ class _SortedPack(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_pack, d_total, d_overflow):
-        d_table = sorted_pack_bwd(ctx.res, d_pack.contiguous(),
-                                  ctx.on_stage)
+        # let go of the hook: a caller that keeps the pack would otherwise
+        # keep, through the pack's graph, the hook and all it holds
+        on_stage, ctx.on_stage = ctx.on_stage, None
+        d_table = sorted_pack_bwd(ctx.res, d_pack.contiguous(), on_stage)
         return (d_table,) + (None,) * 9
 
 

@@ -427,9 +427,10 @@ class _Composite(torch.autograd.Function):
         g_tiles = g_tiles.contiguous()
         d_pack = composite_backward(pack, starts, ends, ctx.toff,
                                     ctx.grid_x, tiles, g_tiles)
-        ctx.on_stage("composite_bwd_B4",
-                     ((pack.detach(), starts, ends, ctx.toff, ctx.grid_x,
-                       tiles.detach(), g_tiles), d_pack))
+        on_stage, ctx.on_stage = ctx.on_stage, None   # as _SortedPack's
+        on_stage("composite_bwd_B4",
+                 ((pack.detach(), starts, ends, ctx.toff, ctx.grid_x,
+                   tiles.detach(), g_tiles), d_pack))
         return d_pack, None, None, None, None, None
 
 

@@ -33,6 +33,7 @@ import torch
 
 from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.data.dataset import SceneData
+from rain_tpu_torch.eval.lpips import lpips_fn_or_none
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
@@ -72,6 +73,27 @@ def _fitting_tier(m: int, needed: int) -> int:
             f"instance tier {m} exceeds the 2^27 sanity bound — the scene "
             f"configuration is pathological")
     return m
+
+
+@torch.no_grad()
+def render_whole(state, camera, bg, low_pass, scale_modifier=1.0, *,
+                 width: int, height: int, sh_degree: int, max_instances: int):
+    """eval_render of a view, never truncated: rendered at
+    ``max_instances`` and, if that overflows, again at the first ladder
+    tier that holds the view's instances (rain_tpu shows, scores and saves
+    the truncated image: rain_tpu/train/trainer.py:606-616,648-653,
+    rain_tpu/scripts/render.py:110). Returns (output, the tier of the
+    second render or None)."""
+    def render(tier):
+        return step_mod.eval_render(
+            state, camera, bg, low_pass, scale_modifier, width=width,
+            height=height, sh_degree=sh_degree, max_instances=tier)
+
+    out = render(max_instances)
+    if not bool(out.overflow):
+        return out, None
+    again = _fitting_tier(max_instances, int(out.num_instances))
+    return render(again), again     # the same view: no overflow
 
 
 class _Verified(NamedTuple):
@@ -115,7 +137,8 @@ class _Flags:
 
 class Trainer:
     def __init__(self, scene: SceneData, cfgs: dict, model_path: str,
-                 *, device=None, log_fn=print, tensorboard: bool = True):
+                 *, device=None, log_fn=print, tensorboard: bool = True,
+                 viewer=None):
         self.device = device_mod.resolve(device)
         self.scene = scene
         self.model = cfgs["model"]
@@ -129,6 +152,7 @@ class Trainer:
         self.model_path = Path(model_path)
         self.model_path.mkdir(parents=True, exist_ok=True)
         self.log = log_fn
+        self.viewer = viewer    # a viewer.network_gui.NetworkGUI, or None
         self.tb = None
         if tensorboard:
             try:  # same optional dependency handling as train.py:17-21
@@ -136,6 +160,15 @@ class Trainer:
                 self.tb = SummaryWriter(str(self.model_path))
             except Exception:
                 self.log("Tensorboard not available: not logging progress")
+        # TensorBoard encodes images with PIL, which a machine may lack
+        self._tb_images = False
+        if self.tb is not None:
+            try:
+                import PIL  # noqa: F401
+                self._tb_images = True
+            except ImportError:
+                self.log("PIL does not import: the reports' images are not "
+                         "written to TensorBoard")
 
         self.divide_ratio = 0.7 if (self.rain.ours or self.rain.ours_new) \
             else 0.8                                  # train.py:28-32
@@ -412,6 +445,9 @@ class Trainer:
             t_iter0 = time.time()
             self.iteration = iteration
             self._profile_tick(iteration)
+            if self.viewer is not None:
+                self.flush_pending()   # the viewer renders committed state
+                self._poll_viewer(iteration >= iterations)
             cam = self._next_camera()
             cam_arrays, gt = self._camera_bundle(cam)
 
@@ -551,37 +587,56 @@ class Trainer:
             self._profile_range = None
             self.log(f"[profile] trace complete -> {trace}")
 
-    # -- evaluation (training_report, train.py:179-224) --------------------
-    def _report_render(self, iteration, cam, cam_arrays):
-        """eval_render of a report view, never truncated: rendered at the
-        training tier and, if that overflows, again at the first ladder
-        tier that holds the view's instances (rain_tpu scores the
-        truncated image, rain_tpu/train/trainer.py:648-653). The training
-        tier stays as it is, so the training schedule is rain_tpu's."""
-        def render(tier):
-            return step_mod.eval_render(
-                self.state, cam_arrays, self.background, self.low_pass,
-                width=cam.width, height=cam.height,
-                sh_degree=self.model.sh_degree, max_instances=tier)
+    def _poll_viewer(self, training_done: bool):
+        """Serve the SIBR viewer (reference train.py:56-69) a frame of the
+        current state, rendered whole (``_render_whole``)."""
+        def render_fn(cam, scaling_modifier):
+            camera = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in cam.items() if k not in ("width", "height")}
+            out, _ = self._render_whole(
+                camera, cam["width"], cam["height"],
+                f"[ITER {self.iteration}] viewer frame",
+                scaling_modifier or 1.0)
+            img = torch.clamp(out.render, 0.0, 1.0).cpu().numpy()
+            return memoryview(
+                (img * 255).astype(np.uint8).transpose(1, 2, 0).copy())
 
-        out = render(self.max_instances)
-        if not bool(out.overflow):
-            return out
-        n = int(out.num_instances)
-        again = _fitting_tier(self.max_instances, n)
-        self.report_rerenders.append(
-            (iteration, cam.image_name, self.max_instances, again))
-        self.log(f"[ITER {iteration}] report view {cam.image_name}: {n} "
-                 f"instances overflow the tier {self.max_instances}; "
-                 f"rendered again at {again}")
-        return render(again)    # the same view: again >= n, no overflow
+        self.viewer.handle(render_fn, str(self.model.source_path),
+                           training_done)
+
+    # -- evaluation (training_report, train.py:179-224) --------------------
+    def _render_whole(self, cam_arrays, width, height, what,
+                      scale_modifier=1.0):
+        """``render_whole`` of the current state from the training tier,
+        each re-render logged. The training tier stays as it is, so the
+        training schedule is rain_tpu's."""
+        out, again = render_whole(
+            self.state, cam_arrays, self.background, self.low_pass,
+            scale_modifier, width=width, height=height,
+            sh_degree=self.model.sh_degree, max_instances=self.max_instances)
+        if again is not None:
+            self.log(f"{what}: {int(out.num_instances)} instances overflow "
+                     f"the tier {self.max_instances}; rendered again at "
+                     f"{again}")
+        return out, again
+
+    def _report_render(self, iteration, cam, cam_arrays):
+        """A report view rendered whole; each re-render is recorded in
+        ``report_rerenders``."""
+        out, again = self._render_whole(
+            cam_arrays, cam.width, cam.height,
+            f"[ITER {iteration}] report view {cam.image_name}")
+        if again is not None:
+            self.report_rerenders.append(
+                (iteration, cam.image_name, self.max_instances, again))
+        return out
 
     @torch.no_grad()
     def report(self, iteration):
-        """PSNR, L1 and SSIM of the test cameras and of 5 training
-        cameras, each rendered whole (``_report_render``); LPIPS comes
-        with eval/lpips.py (rain_tpu leaves the key out without local
-        weights too)."""
+        """PSNR, L1, SSIM and, with local VGG weights, LPIPS of the test
+        cameras and of 5 training cameras, each rendered whole
+        (``_report_render``)."""
+        lpips_fn = lpips_fn_or_none(log_fn=self.log, device=self.device)
         configs = [("test", self.scene.test_cameras),
                    ("train", [self.scene.train_cameras[
                        i % len(self.scene.train_cameras)]
@@ -591,7 +646,7 @@ class Trainer:
         for name, cams in configs:
             if not cams:
                 continue
-            psnrs, l1s, ssims = [], [], []
+            psnrs, l1s, ssims, lpipss = [], [], [], []
             for idx, cam in enumerate(cams):
                 cam_arrays, gt = self._camera_bundle(cam)
                 if gt is None:
@@ -602,7 +657,7 @@ class Trainer:
                 out = self._report_render(iteration, cam, cam_arrays)
                 img = torch.clamp(out.render, 0.0, 1.0)
                 gtc = torch.clamp(gt, 0.0, 1.0)
-                if self.tb is not None and idx < 5:   # train.py:200-203
+                if self._tb_images and idx < 5:   # train.py:200-203
                     self.tb.add_images(f"{name}_view_{cam.image_name}/render",
                                        img[None].cpu().numpy(), iteration)
                     if first_report:
@@ -612,14 +667,20 @@ class Trainer:
                 psnrs.append(float(loss_ops.psnr(img, gtc)[0]))
                 l1s.append(float(loss_ops.l1_loss(img, gtc)))
                 ssims.append(float(loss_ops.ssim(img, gtc)))
+                if lpips_fn is not None:
+                    lpipss.append(float(lpips_fn(img, gtc)))
             if psnrs:
                 results[name] = {"psnr": float(np.mean(psnrs)),
                                  "l1": float(np.mean(l1s)),
                                  "ssim": float(np.mean(ssims))}
+                if lpipss:
+                    results[name]["lpips"] = float(np.mean(lpipss))
                 self.log(f"[ITER {iteration}] Evaluating {name}: "
                          f"L1 {results[name]['l1']:.5f} "
                          f"PSNR {results[name]['psnr']:.2f} "
-                         f"SSIM {results[name]['ssim']:.4f}")
+                         f"SSIM {results[name]['ssim']:.4f}" +
+                         (f" LPIPS(vgg) {results[name]['lpips']:.4f}"
+                          if lpipss else ""))
                 if self.tb is not None:
                     for k, v in results[name].items():
                         self.tb.add_scalar(

@@ -325,3 +325,41 @@ def test_trainer_pipeline_is_bitwise_on_card(cuda, tmp_path):
     for x, y in zip(list(a.state.params) + list(a.opt_state.mu),
                     list(b.state.params) + list(b.opt_state.mu)):
         assert torch.equal(x, y)
+
+
+def test_train_and_render_cli_on_card_match_cpu(cuda, tmp_path):
+    """The train CLI (10 iterations, a report at 10) and the render CLI on
+    the toy COLMAP scene, on the card and with --device cpu: the reports
+    at rtol 1e-4 (tests/test_torch_cli.py's bar against rain_tpu), and the
+    render CLI's PNGs of one PLY within 1 LSB of each other."""
+    import json
+    import shutil
+    from rain_tpu_torch.data import images
+    from rain_tpu_torch.scripts import render as render_cli
+    from rain_tpu_torch.scripts import train as train_cli
+    from torch_colmap_scene import toy_scene
+    scene = tmp_path / "scene"
+    toy_scene(scene)
+    reports = []
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / dev
+        train_cli.main(["-s", str(scene), "-m", str(out), "--iterations",
+                        "10", "--test_iterations", "10", "--num_cams", "3",
+                        "--capacity", "400", "--max_instances", "262144",
+                        "--resolution", "1", "--quiet", "--device", dev])
+        reports.append(json.loads(
+            (out / "log_file.txt").read_text().splitlines()[-1]))
+    for split in ("test", "train"):
+        for k in ("l1", "psnr", "ssim"):
+            np.testing.assert_allclose(reports[0][split][k],
+                                       reports[1][split][k], rtol=1e-4)
+    shutil.copytree(tmp_path / "cuda", tmp_path / "render_cpu")
+    render_cli.main(["-m", str(tmp_path / "cuda")])
+    render_cli.main(["-m", str(tmp_path / "render_cpu"), "--device", "cpu"])
+    names = sorted(p.relative_to(tmp_path / "cuda")
+                   for p in (tmp_path / "cuda").rglob("*.png"))
+    assert len(names) == 4 * 6
+    for name in names:
+        a = images.load(tmp_path / "cuda" / name).astype(int)
+        b = images.load(tmp_path / "render_cpu" / name).astype(int)
+        assert np.abs(a - b).max() <= 1, name

@@ -1,7 +1,8 @@
 """Port hygiene: rain_tpu_torch stands alone and defaults to the card.
 
-- No module of the port, not chip_smoke.py and not the helpers of tests/
-  that chip_smoke.py loads imports jax or rain_tpu.
+- No module of the port (the data loaders, the native parser's loader,
+  LPIPS, the viewer and the CLIs included), not chip_smoke.py and not the
+  helpers of tests/ that chip_smoke.py loads imports jax or rain_tpu.
 - Importing the port leaves jax and rain_tpu out of sys.modules.
 - An entry point called without ``device`` runs on the CUDA card; with no
   card it raises RuntimeError instead of carrying on on the CPU.
@@ -19,6 +20,7 @@ import torch
 from rain_tpu_torch import config as cfg_mod
 from rain_tpu_torch.data.cameras import Camera
 from rain_tpu_torch.data.dataset import SceneData
+from rain_tpu_torch.eval import lpips
 from rain_tpu_torch.model import adam
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.train import checkpoint as ckpt
@@ -32,7 +34,14 @@ PORT_FILES = sorted((ROOT / "rain_tpu_torch").rglob("*.py")) + \
 # numpy and torch only: chip_smoke.py loads them by path
 SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
                  ROOT / "tests" / "torch_reduce_cases.py",
-                 ROOT / "tests" / "torch_trainer_trace.py"]
+                 ROOT / "tests" / "torch_trainer_trace.py",
+                 ROOT / "tests" / "torch_colmap_scene.py"]
+# modules the walk must find, one of each package
+WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
+          "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",
+          "rain_tpu_torch.eval.lpips", "rain_tpu_torch.viewer.network_gui",
+          "rain_tpu_torch.scripts.train", "rain_tpu_torch.scripts.render",
+          "rain_tpu_torch.scripts.metrics")
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -71,7 +80,7 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "rain_tpu_torch.train.step" in PORT_MODULES
+    assert set(WALKED) <= set(PORT_MODULES)
 
 
 def _raw(n=4):
@@ -113,13 +122,18 @@ def _entry_points(tmp_path):
         "Trainer": lambda: Trainer(
             scene, cfgs, str(tmp_path / "t"), log_fn=lambda *a: None,
             tensorboard=False).state.params.xyz,
+        "make_lpips": lambda: lpips.make_lpips(
+            [(np.zeros((1, 3, 3, 3)), np.zeros(1))] +
+            [(np.zeros((1, 1, 3, 3)), np.zeros(1))] * 12, None)(
+                torch.zeros(3, 16, 16, device="cuda"),
+                torch.zeros(3, 16, 16, device="cuda")),
     }
 
 
 @pytest.mark.parametrize("name", ["from_arrays", "from_numpy",
                                   "load_ply_snapshot", "render_inputs",
                                   "create_from_pcd", "load_checkpoint",
-                                  "Trainer"])
+                                  "Trainer", "make_lpips"])
 def test_entry_point_defaults_to_cuda(name, tmp_path):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():

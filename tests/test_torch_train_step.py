@@ -179,3 +179,32 @@ def test_train_step_is_deterministic_and_leaves_its_inputs():
     assert all(not x.requires_grad for x in a[0].params)
     assert tuple(seen) == trender.STAGES + ("loss",) + \
         trender.BACKWARD_STAGES + tstep.TRAIN_STAGES[1:]
+
+
+def test_kept_stage_values_do_not_keep_the_hook_alive():
+    """A hook that keeps each stage's value keeps the pack, and the pack
+    its step's autograd graph; the graph lets go of the hook in backward,
+    so dropping the values frees the hook, what it holds and the graph. A
+    graph that kept the hook would make a cycle through autograd's C++
+    nodes, which Python's collector never frees."""
+    import gc
+    import weakref
+
+    class Seen(dict):
+        pass
+
+    state = tgmod.from_arrays(**_raw(seed=2), capacity=CAPACITY,
+                              device="cpu")
+    gt = np.random.default_rng(3).uniform(0, 1, (3, H, W)).astype(np.float32)
+    seen = Seen()
+    tstep.train_step(
+        state, tadam.init(state.params),
+        TCamera(**_cam(0)).render_inputs(device="cpu"),
+        torch.from_numpy(gt), torch.from_numpy(BG), 0.3,
+        torch.tensor(XYZ_LR), width=W, height=H, sh_degree=3,
+        max_instances=M, opt_cfg_leaves=OPT, on_stage=seen.__setitem__)
+    assert seen["tile_sort_gather"].grad_fn is not None
+    refs = [weakref.ref(seen), weakref.ref(seen["tile_sort_gather"])]
+    del seen
+    gc.collect()
+    assert all(r() is None for r in refs)
