@@ -120,9 +120,47 @@ Phases, in order; any failure exits non-zero before the result lines:
    Python), PNG decode and encode times, each CLI's wall time, ms per
    iteration over iterations 5-40, the render CLI's ms per view against
    eval_render alone, each CLI's peak memory above what the process held.
+9. The 30k production run of tools/run_production_30k.py on the port,
+   through rain_tpu_torch.scripts.production_30k.main at full width (a
+   600k-Gaussian procedural target, 60 train and 6 test views of
+   1297x840 rendered from it at the tier 4,194,304, a 150k-point init,
+   the production preset with c2f), with round 5's ring radius 14 and
+   scale shift 0.56, cut from 30,000 iterations to 1000
+   with reports at 1 and 1000 and a checkpoint at 500, then a second run
+   resumed from that checkpoint to 600. Checked: ground truth view 0's
+   instances within 0.1 % of round 5's 3,332,871; iteration 1 overflows
+   the first tier 1,245,184 and is retried at a tier that holds it; the
+   launch counters, set to 0 just before each run and read just after,
+   count B1 and B3 once per target view, dispatched step (retries
+   included), report frame and re-render and B4 and B2 once per
+   dispatched step; at the retried step of iteration 1 B1, B3, B4 and B2
+   are held against their plain versions bit for bit and timed (phase 7's
+   trainer_step_kernels, whose launches are not counted); losses and
+   params finite, the held-out PSNR at 1000 above that at 1; the resumed
+   run starts at 500 and reaches 600. Recorded: the exact KNN at 150,000
+   points, target-render ms per view, ms per iteration over iterations
+   5-500 and 500-1000, n_alive per densify round, the tier ladder, report
+   re-renders, peak memory, round 5's counts beside the port's, and the
+   device's busy time, launches and idle share over iterations 400-409
+   (torch.profiler through the CLI's --profile_steps).
+10. The A/B paths of rain_tpu (RAIN_TPU_SORT, RAIN_TPU_EXPAND,
+   RAIN_TPU_REDUCE), keyword arguments in the port, at phase 4's step 0
+   (the perturbed 262k proxy, pose 0, its render as ground truth):
+   render and the training loss's gradients through B2 (the main path),
+   through the scatter reduction and through the legacy expansion, each
+   twice. Checked: each path's two runs equal bit for bit; neither A/B
+   path launches B2; bin_gaussians with torch.sort and with the bitonic
+   network give one Binning, the legacy path's; the legacy and the fused
+   path give one image, depth, alpha, final T and n_contrib, one instance
+   order (tiles and depth ranks of the sorted keys, and the packs) bit
+   for bit; with the scatter reduction their gradients are equal bit for
+   bit; the scatter reduction against B2 within the gradient bar 1e-4.
+   Recorded: the launches of the six runs, a frame's time through each
+   expansion, bin_gaussians' time with each sort.
 
-It prints the nvidia-smi line, one {"kernels": [...]} line and, last, the
-{"ok": true, "device": {...}} line; with --out it also writes every
+It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
+(each kernel's launches in phase 4, and in phases 8, 9 and 10) and, last,
+the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
 """
@@ -155,6 +193,7 @@ from rain_tpu_torch.data.dataset import SceneData, nerfpp_norm
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
+from rain_tpu_torch.ops import binning as binning_ops
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import losses as loss_ops
@@ -162,6 +201,7 @@ from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
 from rain_tpu_torch.scripts import metrics as metrics_cli
+from rain_tpu_torch.scripts import production_30k
 from rain_tpu_torch.scripts import render as render_cli
 from rain_tpu_torch.scripts import train as train_cli
 from rain_tpu_torch.train import checkpoint
@@ -626,8 +666,12 @@ def counters():
 
 
 def reset_counts():
-    for f in counters().values():
-        f.launches = 0
+    set_counts({k: 0 for k in counters()})
+
+
+def set_counts(counts):
+    for k, f in counters().items():
+        f.launches = counts[k]
 
 
 def read_counts():
@@ -766,26 +810,31 @@ def trainer_step_kernels(seen, width, height, max_instances, state):
 
 
 class KernelCapture:
-    """Runs trainer_step_kernels on the first step a Trainer dispatches at
-    a capacity above ``after_capacity`` (after a growth, so with dead rows
-    at the tail of the state) that does not overflow its tier. Such steps
-    run with an on_stage hook, and the checks run as the step returns."""
+    """Runs trainer_step_kernels on the first step a Trainer dispatches
+    that ``when(state, kw)`` selects (kw: train_step's keywords) and that
+    does not overflow its tier: in phase 7 the first at a capacity above
+    the initial one (after a growth, so with dead rows at the tail of the
+    state), in phase 9 the first above the initial instance tier (the
+    retried iteration 1). Such steps run with an on_stage hook, and the
+    checks run as the step returns; their launches are not counted."""
 
-    def __init__(self, after_capacity):
-        self.after = after_capacity
+    def __init__(self, when):
+        self.when = when
         self.result = None
         self.b2_tiles = None   # B2's tiles and M there, for chip_ablate.py
 
     def wrap(self, train_step):
         def wrapped(state, opt, *a, **kw):
-            if self.result is not None or state.capacity <= self.after:
+            if self.result is not None or not self.when(state, kw):
                 return train_step(state, opt, *a, **kw)
             seen = {}
             out = train_step(state, opt, *a, on_stage=stage_hook(seen), **kw)
             if not bool(out[2].instance_overflow):
+                counts = read_counts()
                 self.result = trainer_step_kernels(
                     seen, kw["width"], kw["height"], kw["max_instances"],
                     state)
+                set_counts(counts)
                 self.b2_tiles = (seen["reduce_B2"][2].cpu().numpy(),
                                  kw["max_instances"])
             return out
@@ -1077,8 +1126,9 @@ def trainer_phase(arrays, out=None):
         # bit, and its launches are not counted)
         with np.load(tmp / "a" / f"chkpnt{BITWISE_AT}.npz") as z:
             saved = {k: z[k] for k in z.files}
-        capture = KernelCapture(after_capacity=trainer_configs()[
-            "system"].capacity)
+        first_capacity = trainer_configs()["system"].capacity
+        capture = KernelCapture(
+            lambda state, kw: state.capacity > first_capacity)
         with recorded(capture):
             tb = trainer_mod.Trainer(
                 scene, trainer_configs(profile_steps=PROFILE_STEPS),
@@ -1428,7 +1478,293 @@ def cli_phase(arrays):
     return rec
 
 
+# --- 9. the 30k production run, cut to 1000 iterations ----------------------
+PROD_ITERS = 1000
+PROD_CHECKPOINT = 500           # the checkpoint the second run resumes from
+PROD_RESUMED = 600
+PROD_TIMED = {"5-500": range(5, 500), "500-1000": range(500, PROD_ITERS)}
+PROD_PROFILED = range(400, 410)   # between the retry and the first round
+# round 5's JAX run (docs/runs/production_30k_r5.log:3,11-12,15): ground
+# truth view 0's instances, iteration 1's instances over the first tier,
+# and the held-out PSNR at 1000 (a TPU's run: a band, not bits). It ran
+# the tool with a camera ring of 14 and target scales shifted by 0.56
+# (docs/runs/README.md:13-14 names the ring; the shift is the one whose
+# view 0 holds round 5's count, tests/test_torch_production.py); the
+# tool's defaults (8, 0) are round 5's third attempt's.
+R5_GT_VIEW0, R5_ITER1, R5_FIRST_TIER, R5_PSNR_1000 = (
+    3_332_871, 2_008_240, 1_245_184, 25.46)
+R5_KNOBS = ["--ring_radius", "14", "--target_scale_shift", "0.56"]
+
+
+def production_phase():
+    """tools/run_production_30k.py's run on the port (phase 9), through
+    rain_tpu_torch.scripts.production_30k.main at full width, cut to 1000
+    iterations, then resumed from its checkpoint at 500 to 600. Returns
+    its record."""
+    rec = {}
+    sc = production_30k.build_scene(ring_radius=14.0, scale_shift=0.56)
+    _, rec["knn_ms"] = timed(knn_ops.mean_dist3_matmul,
+                             torch.from_numpy(sc.init_pts).to(DEV))
+    n_views = len(sc.train_cameras) + len(sc.test_cameras)
+    n_report = len(sc.test_cameras) + 5
+    del sc
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = str(Path(tmp) / "production")
+        argv = [out, *R5_KNOBS, "--iterations", str(PROD_ITERS),
+                "--profile_steps", f"{PROD_PROFILED[0]}-{PROD_PROFILED[-1]}",
+                "--test_iterations",
+                "1", str(PROD_ITERS), "--save_iterations",
+                "--checkpoint_iterations", str(PROD_CHECKPOINT)]
+        capture = KernelCapture(
+            lambda state, kw: kw["max_instances"] > R5_FIRST_TIER)
+        torch.cuda.synchronize()
+        gc.collect()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded(capture) as trace:
+            run, wall_ms = timed(production_30k.main, argv)
+        launches = read_counts()
+        rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        rec["held_mib"] = held / 2**20
+        tr = run.trainer
+        a = loop_summary(trace)
+        steps, kept = a["steps"], a["kept"]
+        again = len(tr.report_rerenders)
+        want = {"expand_instances": n_views + len(steps) + 2 * n_report +
+                again,
+                "composite_forward": n_views + len(steps) + 2 * n_report +
+                again,
+                "composite_backward": len(steps),
+                "reduce_instances": len(steps)}
+        print(f"production: launches {launches} for {n_views} target "
+              f"views, {len(steps)} dispatched steps, {2 * n_report} report "
+              f"frames and {again} re-renders")
+        if launches != want:
+            raise AssertionError(f"expected launches {want}")
+        gt0 = run.gt_instances[0]
+        print(f"production: ground truth view 0 {gt0} instances (round 5: "
+              f"{R5_GT_VIEW0})")
+        if not abs(gt0 - R5_GT_VIEW0) <= 1e-3 * R5_GT_VIEW0:
+            raise AssertionError("view 0's instances are not round 5's")
+        first = a["retries"][0] if a["retries"] else None
+        if first is None or first["iteration"] != 1 or \
+                first["tier_before"] != R5_FIRST_TIER or \
+                not first["instances"] > R5_FIRST_TIER or \
+                first["tier_after"] < first["instances"]:
+            raise AssertionError(f"iteration 1 did not overflow "
+                                 f"{R5_FIRST_TIER} and retry: {a['retries']}")
+        print(f"production: iteration 1 {first['instances']} instances > "
+              f"{R5_FIRST_TIER}, retried at {first['tier_after']} (round 5: "
+              f"{R5_ITER1}, retried at 2097152)")
+        if capture.result is None:
+            raise AssertionError("the retried step of iteration 1 was not "
+                                 "held against the plain versions")
+        losses = [s[3] for s in kept]
+        if len(kept) != PROD_ITERS or any(s[4] for s in kept) or not all(
+                math.isfinite(v) for v in losses) or not all(
+                bool(torch.isfinite(x).all()) for x in tr.state.params):
+            raise AssertionError("a kept step overflowed or is not finite")
+        psnr = [h["test"]["psnr"] for h in tr.history]
+        if [h["iteration"] for h in tr.history] != [1, PROD_ITERS] or \
+                not psnr[1] > psnr[0]:
+            raise AssertionError(f"held-out PSNR {psnr}")
+        iter_ms = a["iteration_ms"]
+        # the device's busy time over the profiled window's host time
+        ops = [e for e in tr.profile.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ops) / 1e3
+        if busy <= 0.0:
+            raise AssertionError("the profiler recorded no device time")
+        n_prof = len(PROD_PROFILED)
+        ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        rec.update({
+            "device_busy_ms_per_iter": busy / n_prof,
+            "profiled_wall_ms_per_iter": tr.profile_wall_ms / n_prof,
+            "device_idle_share": 1.0 - busy / tr.profile_wall_ms,
+            "device_ops_per_iter": sum(e.count for e in ops) / n_prof,
+            "device_top_per_iter": [
+                [e.key[:100], e.self_device_time_total / 1e3 / n_prof,
+                 e.count / n_prof] for e in ops[:12]]})
+        rec.update({
+            "wall_s": wall_ms / 1e3, "gt_instances": run.gt_instances,
+            "gt_ms_per_view": run.gt_seconds * 1e3 / n_views,
+            "train_s": run.train_seconds, "launches": launches,
+            "steps_dispatched": len(steps), "report_frames": 2 * n_report,
+            "report_rerenders": tr.report_rerenders,
+            "retries": a["retries"], "final_tier": tr.max_instances,
+            "rounds": a["rounds"], "growths": a["growths"],
+            "resets": a["resets"],
+            "n_alive_per_round": [r["info"]["n_alive"] for r in a["rounds"]],
+            "iteration_ms": {k: quartiles([iter_ms[i] for i in r])
+                             for k, r in PROD_TIMED.items()},
+            "iteration_ms_mean": {k: float(np.mean([iter_ms[i] for i in r]))
+                                  for k, r in PROD_TIMED.items()},
+            "losses": [losses[0], losses[-1]], "psnr": psnr,
+            "history": tr.history, "final_n_alive": tr.state.n_alive,
+            "final_capacity": tr.state.capacity,
+            "step_kernels": capture.result})
+        del run, tr, trace, capture
+
+        # the second run: resumed from the checkpoint at 500, on to 600
+        reset_counts()
+        with recorded() as trace:
+            run, rec["resume_wall_ms"] = timed(production_30k.main, [
+                out, *R5_KNOBS, "--iterations", str(PROD_RESUMED),
+                "--test_iterations",
+                "--save_iterations", "--checkpoint_iterations"])
+        launches = read_counts()
+        steps = loop_summary(trace, first=PROD_CHECKPOINT + 1)
+        n = len(steps["steps"])
+        want = {"expand_instances": n_views + n, "composite_forward":
+                n_views + n, "composite_backward": n, "reduce_instances": n}
+        resumed = [s[3] for s in steps["kept"]]
+        if run.first_iteration != PROD_CHECKPOINT or \
+                run.trainer.iteration != PROD_RESUMED or \
+                len(resumed) != PROD_RESUMED - PROD_CHECKPOINT or \
+                not all(math.isfinite(v) for v in resumed) or \
+                launches != want:
+            raise AssertionError(f"the resumed run: from "
+                                 f"{run.first_iteration} to "
+                                 f"{run.trainer.iteration}, launches "
+                                 f"{launches} (expected {want})")
+        rec["resumed_launches"] = launches
+        rec["resumed_losses"] = [resumed[0], resumed[-1]]
+        del run, trace
+    gc.collect()
+    summary = {k: rec[k] for k in (
+        "wall_s", "knn_ms", "gt_ms_per_view", "train_s", "steps_dispatched",
+        "final_tier", "final_n_alive", "n_alive_per_round",
+        "iteration_ms_mean", "peak_mib", "held_mib", "psnr", "losses",
+        "device_busy_ms_per_iter", "profiled_wall_ms_per_iter",
+        "device_idle_share", "device_ops_per_iter")}
+    summary.update(gt_view0=rec["gt_instances"][0],
+                   iteration1=[rec["retries"][0]["instances"],
+                               rec["retries"][0]["tier_after"]],
+                   tier_ladder=[[r["iteration"], r["tier_after"]]
+                                for r in rec["retries"]],
+                   report_rerenders=len(rec["report_rerenders"]),
+                   resume_wall_ms=rec["resume_wall_ms"])
+    print("production: " + json.dumps(summary))
+    return rec
+
+
+# --- 10. the A/B paths ----------------------------------------------------
+AB_PATHS = {"kernel": {}, "scatter": {"reduce": "scatter"},
+            "legacy": {"expand": "legacy"}}
+
+
+def ab_render(state, cam, gt, **paths):
+    """render of a training step's view through one A/B path, with every
+    stage kept, and the gradients of the training loss in the params and
+    the screen-space tap."""
+    xs = [x.detach().clone().requires_grad_(True) for x in state.params]
+    scales, quats, opac, shs = gmod.activate(gmod.GaussianParams(*xs))
+    tap = torch.zeros((state.capacity, 2), device=DEV, requires_grad=True)
+    seen = {}
+    out = render_ops.render(
+        xs[0], scales, quats, opac, shs, gmod.alive_mask(state), camera=cam,
+        width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+        bg=torch.tensor(BG, device=DEV), low_pass=LOW_PASS,
+        max_instances=MAX_INSTANCES, xy_tap=tap, on_stage=stage_hook(seen),
+        **paths)
+    loss_ops.training_loss(out.render, gt)[0].backward()
+    return out, [x.grad for x in xs] + [tap.grad], seen
+
+
+def ab_phase(state, cam, gt):
+    """The A/B paths on the card at phase 4's step 0 (phase 10). Returns
+    its record."""
+    rec = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {name: [ab_render(state, cam, gt, **kw) for _ in range(2)]
+            for name, kw in AB_PATHS.items()}
+    rec["launches"] = read_counts()
+    for name, ((o1, g1, _), (o2, g2, _)) in runs.items():
+        if not (bitwise_equal(o1.render, o2.render) and all(
+                bitwise_equal(a, b) for a, b in zip(g1, g2))):
+            raise AssertionError(f"{name}: two runs differ")
+    print("ab: two runs of each path (B2, the scatter reduction, the "
+          "legacy expansion) are bitwise equal in image and gradients")
+    names = list(gmod.GaussianParams._fields) + ["tap"]
+    fused, g_kernel, seen = runs["kernel"][0]
+    _, g_scatter, seen_s = runs["scatter"][0]
+    legacy, g_legacy, seen_l = runs["legacy"][0]
+    if "reduce_B2" in seen_s or "reduce_B2" in seen_l or tuple(seen_l) != \
+            render_ops.LEGACY_STAGES + render_ops.BACKWARD_STAGES[:1]:
+        raise AssertionError("an A/B path ran kernel B2")
+
+    # the two sorts: one Binning
+    prep = seen_l["preprocess"]
+    grid_x, grid_y = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+    with torch.no_grad():
+        binn = {s: binning_ops.bin_gaussians(prep, grid_x, grid_y,
+                                             MAX_INSTANCES, sort=s)
+                for s in binning_ops.SORTS}
+    if not all(torch.equal(a, b) for a, b in zip(*binn.values())):
+        raise AssertionError("bin_gaussians: the torch and the bitonic "
+                             "sort differ")
+    if not all(torch.equal(a, b) for a, b in zip(binn["torch"],
+                                                 seen_l["bin_gaussians"])):
+        raise AssertionError("bin_gaussians differs from the legacy path's")
+    # legacy and fused: one image, n_contrib and instance order
+    b = binn["torch"]
+    total = int(b.num_instances)
+    kept = min(total, MAX_INSTANCES)
+    keys = torch.sort(seen["expand_B1"][1]).values[:kept]
+    if not (torch.equal(keys >> 32, b.tile_id[:kept]) and torch.equal(
+            keys & 0xFFFFFFFF, b.rank[:kept]) and bitwise_equal(
+            seen["tile_sort_gather"], seen_l["pack_take"])):
+        raise AssertionError("legacy and fused: instance order differs")
+    for f in ("render", "depth", "alpha", "final_t", "n_contrib"):
+        if not bitwise_equal(getattr(legacy, f).float(),
+                             getattr(fused, f).float()):
+            raise AssertionError(f"legacy and fused: {f} differs")
+    if not all(bitwise_equal(a, b) for a, b in zip(g_legacy, g_scatter)):
+        raise AssertionError("legacy and fused (scatter): gradients differ")
+    # the scatter reduction against B2, at the gradient bar
+    rel = {}
+    for name, a, b in zip(names, g_scatter, g_kernel):
+        scale = float(b.abs().max())
+        rel[name] = float((a - b).abs().max()) / scale if scale else 0.0
+    if not all(v < 1e-4 for v in rel.values()):
+        raise AssertionError(f"scatter against B2: {rel}")
+    rec.update({
+        "instances": total, "kept": kept, "scatter_vs_b2_rel_err": rel,
+        "scatter_bitwise_b2": all(bitwise_equal(a, b) for a, b in
+                                  zip(g_scatter, g_kernel))})
+    print(f"ab: {total} instances; torch and bitonic sorts one Binning; "
+          f"legacy and fused one image, n_contrib and order; with the "
+          f"scatter reduction one set of gradients; scatter vs B2 relative "
+          f"error {json.dumps(rel)} (bitwise: {rec['scatter_bitwise_b2']})")
+    del runs, seen, seen_s, seen_l, fused, legacy
+    # times of one frame through each path, and of the two sorts
+    with torch.no_grad():
+        acts = gmod.activate(state.params)
+        alive = gmod.alive_mask(state)
+
+        def frame(**kw):
+            return render_ops.render(
+                state.params.xyz, *acts, alive, camera=cam, width=WIDTH,
+                height=HEIGHT, sh_degree=SH_DEGREE,
+                bg=torch.tensor(BG, device=DEV), low_pass=LOW_PASS,
+                max_instances=MAX_INSTANCES, **kw)
+
+        rec["frame_ms"] = {k: host_ms(lambda: frame(**kw), 5)[0]
+                           for k, kw in (("fused", {}),
+                                         ("legacy", {"expand": "legacy"}))}
+        rec["bin_gaussians_ms"] = {
+            s: host_ms(lambda: binning_ops.bin_gaussians(
+                prep, grid_x, grid_y, MAX_INSTANCES, sort=s), 5)[0]
+            for s in binning_ops.SORTS}
+    print("ab: " + json.dumps({k: rec[k] for k in (
+        "frame_ms", "bin_gaussians_ms", "launches")}))
+    return rec
+
+
 def main(out: Path | None = None):
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
     smi = subprocess.run(
@@ -1691,9 +2027,15 @@ def main(out: Path | None = None):
     trainer_rec = trainer_phase(arrays, out.parent if out else None)
     # --- 8. the CLIs, with PIL blocked --------------------------------------
     cli_rec = cli_phase(arrays)
+    # --- 9. the 30k production run, cut to 1000 iterations -----------------
+    prod_rec = production_phase()
+    # --- 10. the A/B paths, at phase 4's step 0 ------------------------------
+    ab_rec = ab_phase(state0, cams[0], gts[0])
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
+        k["launches_production"] = prod_rec["launches"][k["name"]]
+        k["launches_ab"] = ab_rec["launches"][k["name"]]
 
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
@@ -1732,6 +2074,9 @@ def main(out: Path | None = None):
         "kernels": kernels,
         "trainer": trainer_rec,
         "cli": cli_rec,
+        "production": prod_rec,
+        "ab": ab_rec,
+        "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
@@ -1744,6 +2089,7 @@ def main(out: Path | None = None):
         "frame_ms_median", "device_busy_ms", "device_idle_share",
         "device_launches_per_frame", "peak_mib_per_frame", "stages_ms")}))
     print(json.dumps(record["work"]))
+    print(f"chip_smoke: wall time {record['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,18 @@ Differentiability map:
 - composite: an autograd Function, forward kernel B3, backward kernel B4
   (ops.tile_render).
 
+Two A/B paths of rain_tpu are keyword arguments here, where rain_tpu reads
+them from the environment at import: ``expand="legacy"``
+(``RAIN_TPU_EXPAND=legacy``) builds the instance list with
+``binning.bin_gaussians`` and gathers the pack from a [16, N+1] table with
+a dump column (``pack_take``, whose backward is the per-Gaussian sum
+``binning.owner_sum``), and ``reduce="scatter"`` (``RAIN_TPU_REDUCE``)
+sums the fused path's instance gradients with ``owner_sum`` instead of
+kernel B2. Both default to the main path and are plain torch: the legacy
+path launches neither B1 nor B2, the scatter reduction no B2; both keep
+B3 and B4. The legacy path always carries the depth row (as rain_tpu's
+does).
+
 ``xy_tap`` plays the role of the reference's ``screenspace_points`` dummy
 (gaussian_renderer/__init__.py:10-14): pass zeros [N, 2] that require a
 gradient, and its gradient is the per-Gaussian screen-space gradient the
@@ -41,10 +53,45 @@ from rain_tpu_torch.ops.projection import TILE
 # tiles of kernel B3, and the RenderOutput.
 STAGES = ("preprocess", "depth_sort", "expand_B1", "tile_sort_gather",
           "tile_ranges", "composite_B3", "assemble")
+# The stages of ``render(..., expand="legacy")``: Preprocessed, the
+# binning.Binning, the [16, M] pack, the tiles of kernel B3 and the
+# RenderOutput.
+LEGACY_STAGES = ("preprocess", "bin_gaussians", "pack_take", "composite_B3",
+                 "assemble")
 # The stages of a backward through ``render``, in order: kernel B4's
 # (args, d_pack) (ops.tile_render.composite) and kernel B2's
-# (d_rank, exc, tiles, d_depth) (ops.binning.sorted_pack_bwd).
+# (d_rank, exc, tiles, d_depth) (ops.binning.sorted_pack_bwd; not with
+# reduce="scatter" or the legacy path).
 BACKWARD_STAGES = ("composite_bwd_B4", "reduce_B2")
+EXPANSIONS = ("fused", "legacy")
+
+
+class _PackTake(torch.autograd.Function):
+    """table [R, N+1] → pack [R, M], column j = table[:, idx[j]]."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[1] - 1
+        return table[:, idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        d = binning_ops.owner_sum(g, idx, ctx.n)
+        return torch.cat([d, d.new_zeros((d.shape[0], 1))], dim=1), None
+
+
+def pack_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The legacy pack gather (rain_tpu/ops/render.py:42-66): columns of
+    ``table`` [16, N+1], whose last column is the dump column of the
+    padding instances, by ``idx`` [M]. Its backward sums each instance's
+    cotangent to its Gaussian's column in instance order
+    (``binning.owner_sum``): deterministic on every device, with no float
+    atomics. The dump column, a constant, takes a zero gradient (the
+    padding instances lie in no tile's range, so their cotangents are
+    zero)."""
+    return _PackTake.apply(table, idx)
 
 
 class RenderOutput(NamedTuple):
@@ -61,21 +108,45 @@ class RenderOutput(NamedTuple):
 def render_tiles(prep: proj_ops.Preprocessed,
                  xy_tap: torch.Tensor | None = None, *, grid_x: int,
                  n_rows: int, max_instances: int, need_depth: bool = True,
-                 on_stage: binning_ops.StageHook = binning_ops.no_stage_hook):
-    """Composite every tile row of the image (the reference's fused path).
+                 on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+                 expand: str = "fused", reduce: str = "kernel"):
+    """Composite every tile row of the image.
 
     Returns tiles [n_rows*grid_x, 256, 8] plus (num_instances, overflow).
     ``xy_tap`` [N, 2], when given, is added to the pixel-space means.
-    ``on_stage`` is called after each stage, see STAGES, and after each
-    stage of a backward through the tiles, see BACKWARD_STAGES.
+    ``on_stage`` is called after each stage, see STAGES (LEGACY_STAGES
+    with ``expand="legacy"``), and after each stage of a backward through
+    the tiles, see BACKWARD_STAGES. ``expand`` ("fused" or "legacy") and
+    ``reduce`` ("kernel" or "scatter"; the legacy path has its own sum)
+    pick the A/B paths of the module docstring; ValueError otherwise.
     """
+    binning_ops._choose("expand", expand, EXPANSIONS)
+    binning_ops._choose("reduce", reduce, binning_ops.REDUCTIONS)
     n_tiles = n_rows * grid_x
     xy = prep.xy if xy_tap is None else prep.xy + xy_tap
     table10 = tile_render.pack_rows(xy, prep.conic, prep.opacity,
                                     prep.rgb, prep.depth)
+    if expand == "legacy":
+        binn = binning_ops.bin_gaussians(prep, grid_x, n_rows,
+                                         max_instances)
+        on_stage("bin_gaussians", binn)
+        # [16, N+1]: the ten kernel rows, zero rows and the dump column
+        # that padding instances gather
+        n = table10.shape[1]
+        table = torch.cat([table10, table10.new_zeros(
+            (tile_render.PACK_ROWS - tile_render.KERNEL_ROWS, n))])
+        table = torch.cat([table, table.new_zeros((table.shape[0], 1))],
+                          dim=1)
+        pack = pack_take(table, binn.gauss_idx)
+        on_stage("pack_take", pack)
+        tiles = tile_render.composite(pack, binn.tile_start, binn.tile_end,
+                                      0, grid_x, on_stage)
+        on_stage("composite_B3", tiles)
+        return tiles, binn.num_instances, binn.overflow
     pack, num_instances, overflow = binning_ops.sorted_pack(
         table10, prep.tiles_touched, prep.rect_min, prep.rect_wh,
-        0, grid_x, n_tiles, max_instances, need_depth, on_stage)
+        0, grid_x, n_tiles, max_instances, need_depth, on_stage,
+        reduce=reduce)
     tile_start, tile_end = binning_ops.tile_ranges(
         prep.rect_min, prep.rect_wh, prep.tiles_touched > 0, grid_x,
         n_tiles, 0, max_instances)
@@ -107,8 +178,8 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
            xy_tap: torch.Tensor | None = None,
            need_depth: bool = True,
            render_wh: tuple[int, int] | None = None,
-           on_stage: binning_ops.StageHook = binning_ops.no_stage_hook
-           ) -> RenderOutput:
+           on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+           expand: str = "fused", reduce: str = "kernel") -> RenderOutput:
     """Render one view from post-activation inputs (see model.gaussians).
 
     camera: dict from data.cameras.Camera.render_inputs().
@@ -118,8 +189,10 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
       tile-aligned bucket that sets the tile grid and the output's shape,
       and the true size sets the focal lengths and NDC → pixel scaling;
       pixels beyond it are dead ones the caller masks.
-    on_stage(name, value) is called after each of STAGES with its result,
-      and after each of BACKWARD_STAGES in a backward through the render.
+    on_stage(name, value) is called after each of STAGES (LEGACY_STAGES
+      with expand="legacy") with its result, and after each of
+      BACKWARD_STAGES in a backward through the render.
+    expand, reduce: the A/B paths (see ``render_tiles``).
     """
     grid_x = (width + TILE - 1) // TILE
     grid_y = (height + TILE - 1) // TILE
@@ -138,7 +211,7 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
     tiles, num_instances, overflow = render_tiles(
         prep, xy_tap, grid_x=grid_x, n_rows=grid_y,
         max_instances=max_instances, need_depth=need_depth,
-        on_stage=on_stage)
+        on_stage=on_stage, expand=expand, reduce=reduce)
 
     img = assemble_image(tiles, grid_x, grid_y, height, width)
     color = img[..., 0:3] + img[..., tile_render.CH_T:tile_render.CH_T + 1] \

@@ -18,11 +18,13 @@ import pytest
 import torch
 
 from rain_tpu_torch import config as cfg_mod
+from rain_tpu_torch import entry as entry_mod
 from rain_tpu_torch.data.cameras import Camera
 from rain_tpu_torch.data.dataset import SceneData
 from rain_tpu_torch.eval import lpips
 from rain_tpu_torch.model import adam
 from rain_tpu_torch.model import gaussians as gmod
+from rain_tpu_torch.scripts import production_30k
 from rain_tpu_torch.train import checkpoint as ckpt
 from rain_tpu_torch.train.trainer import Trainer
 
@@ -41,7 +43,9 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",
           "rain_tpu_torch.eval.lpips", "rain_tpu_torch.viewer.network_gui",
           "rain_tpu_torch.scripts.train", "rain_tpu_torch.scripts.render",
-          "rain_tpu_torch.scripts.metrics")
+          "rain_tpu_torch.scripts.metrics",
+          "rain_tpu_torch.scripts.production_30k", "rain_tpu_torch.entry",
+          "rain_tpu_torch.ops.sort")
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -127,13 +131,21 @@ def _entry_points(tmp_path):
             [(np.zeros((1, 1, 3, 3)), np.zeros(1))] * 12, None)(
                 torch.zeros(3, 16, 16, device="cuda"),
                 torch.zeros(3, 16, 16, device="cuda")),
+        "entry": lambda: entry_mod.entry()[1][0].xyz,
+        "production_30k.main": lambda: production_30k.main(
+            [str(tmp_path / "p"), "--target_n", "400", "--width", "64",
+             "--height", "48", "--n_train", "2", "--n_test", "1",
+             "--init_n", "100", "--iterations", "1", "--test_iterations",
+             "--save_iterations", "--checkpoint_iterations"]
+        ).trainer.state.params.xyz,
     }
 
 
 @pytest.mark.parametrize("name", ["from_arrays", "from_numpy",
                                   "load_ply_snapshot", "render_inputs",
                                   "create_from_pcd", "load_checkpoint",
-                                  "Trainer", "make_lpips"])
+                                  "Trainer", "make_lpips", "entry",
+                                  "production_30k.main"])
 def test_entry_point_defaults_to_cuda(name, tmp_path):
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
