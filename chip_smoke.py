@@ -157,9 +157,37 @@ Phases, in order; any failure exits non-zero before the result lines:
    bit; the scatter reduction against B2 within the gradient bar 1e-4.
    Recorded: the launches of the six runs, a frame's time through each
    expansion, bin_gaussians' time with each sort.
+11. The sharded step (rain_tpu_torch.parallel), its ranks sharing the card
+   over gloo (parallel.launch.spawn, one process per rank). First B1, B3
+   and B4 at tile offset -82 on a band of 29 rows at full width whose
+   rects start in the row above the image (50,000 Gaussians,
+   tests/torch_sharding_cases.py:band_case): bit for bit with their plain
+   versions and with the band moved down one row at offset 0. Then phase
+   4's step 0 (the perturbed 262k proxy, pose 0, its render as ground
+   truth) at D = 2 and 4 ranks, the tier 786,432 per band: every rank's
+   counts set to 0 just before its step and read just after (each kernel
+   once per rank); loss and l1 within 1e-5 of the single-device step's;
+   every rank's rows of the Adam moments within 1e-5 absolute, of the
+   params too wherever the single-device gradient is at least 1e-6 of its
+   leaf's largest (below that the gradient is at its rounding's level and
+   Adam's first step lr·g/(|g| + 1e-15) may move a param by up to 2·lr,
+   the bar there; such params past 1e-5 are counted),
+   xyz_gradient_accum within 1e-5, denom and max_radii2d exactly; B1-B4 of
+   every band (offset -82 on band 0) bit for bit with their plain
+   versions; a second D = 2 run gives the same bits on every rank. A
+   Trainer with devices=2 (two ranks on the card) against devices=1 on
+   phase 7's scene, 12 iterations with a densify round at 10 (the same
+   n_alive; params within 2e-3 in all but 1 in 10,000 of each leaf's rows,
+   where a gradient at its rounding's level took another sign and Adam
+   made it a step of lr; those rows counted), and
+   entry.dryrun_multichip(4,
+   share_device=True). Recorded: ms per sharded step per rank (ranks
+   sharing one card: not a scaling figure), each band's instances, the
+   Trainers' times.
 
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
-(each kernel's launches in phase 4, and in phases 8, 9 and 10) and, last,
+(each kernel's launches in phase 4, and in phases 8, 9, 10 and 11) and,
+last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -170,9 +198,11 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import math
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -185,6 +215,7 @@ import torch
 
 from rain_tpu_torch import _build
 from rain_tpu_torch import config
+from rain_tpu_torch import entry as entry_mod
 from rain_tpu_torch.data import colmap as colmap_io
 from rain_tpu_torch.data import images
 from rain_tpu_torch.data import ply as ply_io
@@ -200,6 +231,7 @@ from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
+from rain_tpu_torch.parallel import distributed, launch, sharding
 from rain_tpu_torch.scripts import metrics as metrics_cli
 from rain_tpu_torch.scripts import production_30k
 from rain_tpu_torch.scripts import render as render_cli
@@ -335,18 +367,19 @@ def train(state, opt, cam, gt, width, height, events=None,
     return out, seen
 
 
-def kernel_inputs(seen, width, height, max_instances=None):
+def kernel_inputs(seen, width, height, max_instances=None, band=None):
     """The inputs that kernels B1 and B3 were given in a frame or step
-    (at the tier max_instances, MAX_INSTANCES if None): B1's (args,
+    (at the tier max_instances, MAX_INSTANCES if None), or with band =
+    (tile offset, tile rows) in a band of the sharded step: B1's (args,
     kwargs) and B3's args."""
     grid_x = (width + 15) // 16
-    n_tiles = grid_x * ((height + 15) // 16)
+    toff, n_rows = band or (0, (height + 15) // 16)
     d = seen["depth_sort"]
     start, end = seen["tile_ranges"]
     return (((d.table, d.tiles, d.offs, d.rect_w, d.rect_base),
-             dict(grid_x=grid_x, tile_offset=0, n_tiles=n_tiles,
+             dict(grid_x=grid_x, tile_offset=toff, n_tiles=grid_x * n_rows,
                   max_instances=max_instances or MAX_INSTANCES)),
-            (seen["tile_sort_gather"], start, end, 0, grid_x))
+            (seen["tile_sort_gather"], start, end, toff, grid_x))
 
 
 # (name, source, the TPU kernel it replaces) of B1, B3, B4 and B2
@@ -532,12 +565,15 @@ def compare_tiles(got, want, what):
 
 
 @torch.no_grad()
-def compare_forward(seen, width, height, what, max_instances=None):
-    """B1 and B3 of one frame or step against their plain versions on the
-    inputs it gave them, bit for bit (B1 in columns and keys). Returns
-    their max abs errors. Without autograd: a training step's pack
-    carries its graph, and the plain loops would record theirs."""
-    b1_args, b3_args = kernel_inputs(seen, width, height, max_instances)
+def compare_forward(seen, width, height, what, max_instances=None,
+                    band=None):
+    """B1 and B3 of one frame or step (or band, see kernel_inputs) against
+    their plain versions on the inputs it gave them, bit for bit (B1 in
+    columns and keys). Returns their max abs errors. Without autograd: a
+    training step's pack carries its graph, and the plain loops would
+    record theirs."""
+    b1_args, b3_args = kernel_inputs(seen, width, height, max_instances,
+                                     band)
     cols_k, keys_k = seen["expand_B1"]
     cols_p, keys_p = expand_ops.expand_instances_torch(*b1_args[0],
                                                        **b1_args[1])
@@ -1763,6 +1799,361 @@ def ab_phase(state, cam, gt):
     return rec
 
 
+# --- 11. the sharded step, ranks sharing the card -------------------------
+SHARD_WORLDS = (2, 4)
+SHARD_TIMED = 5                   # sharded steps timed per rank
+SHARD_TRAINER_ITERS = 12          # with a densify round at 10
+# the share of a leaf's rows past the Trainers' 2e-3 bar: a gradient at
+# its rounding's level takes either sign in the two runs, and Adam turns
+# each such sign into a step of lr (tests/test_sharding.py:98-106)
+SHARD_OUTLIERS = 1e-4
+SHARDING = tests_module("torch_sharding_cases")   # the band of row -1
+
+
+def sizes():
+    """The scene's sizes, which phase 11's ranks take from the parent
+    (they import this module afresh)."""
+    return N_GAUSS, WIDTH, HEIGHT, MAX_INSTANCES
+
+
+def adopt(parent_sizes):
+    global N_GAUSS, WIDTH, HEIGHT, MAX_INSTANCES
+    N_GAUSS, WIDTH, HEIGHT, MAX_INSTANCES = parent_sizes
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_rank(rank, dev, parent_sizes, ref_dir, floors, check, timed):
+    """One rank of phase 11's sharded step at phase 4's step 0 (the
+    perturbed 262k proxy, pose 0, its render as ground truth, the tier
+    786,432 per band). The kernels' counts are set to 0 just before the
+    step and read just after. The rank's rows of the step's state and
+    moments are held against the single-device step's (ref_dir, .npy
+    files read by rows): the params apart where the single-device step's
+    Adam moment (0.1 of its gradient) lies below ``floors`` (one per leaf),
+    where Adam's first step lr·g/(|g| + 1e-15) turns the gradients'
+    rounding into a difference of up to 2·lr. With ``check`` B1-B4 of its
+    band are held against their plain versions bit for bit (after the
+    counts are read); then
+    ``timed`` steps from the same shard are timed on the host clock, each
+    ending in a synchronize. Returns the rank's record."""
+    adopt(parent_sizes)
+    ref_dir = Path(ref_dir)
+    world = distributed.world_size()
+    state = gmod.from_arrays(**perturbed(garden_proxy_state_arrays()),
+                             device=dev)
+    s = sharding.shard_state(state, rank, world)
+    o = sharding.shard_opt(adam_mod.init(state.params), rank, world)
+    del state
+    cam = pose(0, WIDTH, HEIGHT).render_inputs(dev)
+    gt = torch.from_numpy(np.load(ref_dir / "gt.npy")).to(dev)
+    bg = torch.tensor(BG, device=dev)
+    step_fn = sharding.make_sharded_train_step(
+        width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+        max_instances_per_shard=MAX_INSTANCES)
+    seen = {}
+    sync(dev)
+    reset_counts()
+    s1, o1, aux = step_fn(s, o, cam, gt, bg, LOW_PASS, XYZ_LR, OPT_LEAVES,
+                          on_stage=stage_hook(seen) if check else
+                          binning_ops.no_stage_hook)
+    sync(dev)
+    launches = read_counts()
+    rows = slice(rank * s.capacity, (rank + 1) * s.capacity)
+
+    def ref(name):
+        return torch.from_numpy(np.array(np.load(
+            ref_dir / f"{name}.npy", mmap_mode="r")[rows])).to(dev)
+
+    err, quiet = {}, {}
+    for group, got in (("params", s1.params), ("mu", o1.mu), ("nu", o1.nu)):
+        for name, t in got._asdict().items():
+            d = (t - ref(f"{group}.{name}")).abs()
+            if group == "params":
+                small = ref(f"mu.{name}").abs() < floors[name]
+                quiet[name] = (float(d[small].max()) if small.any()
+                               else 0.0, int((d[small] >= 1e-5).sum()),
+                               int(small.sum()))
+                d = d[~small]
+            err[f"{group}.{name}"] = float(d.max()) if d.numel() else 0.0
+    err["xyz_gradient_accum"] = float(
+        (s1.xyz_gradient_accum - ref("stats.xyz_gradient_accum"))
+        .abs().max())
+    exact = {k: bool(torch.equal(getattr(s1, k), ref(f"stats.{k}")))
+             for k in ("denom", "max_radii2d")}
+    h = hashlib.sha256()
+    for t in list(s1.params) + list(o1.mu) + list(o1.nu) + \
+            [getattr(s1, k) for k in gmod.STAT_FIELDS]:
+        h.update(t.cpu().numpy().tobytes())
+    rec = {"rank": rank, "loss": float(aux.loss), "l1": float(aux.l1),
+           "num_instances": int(aux.num_instances),
+           "overflow": bool(aux.instance_overflow), "launches": launches,
+           "max_abs_err": err, "exact": exact, "digest": h.hexdigest(),
+           "small_gradient_params": quiet,
+           "band_instances": int(seen["depth_sort"].offs[-1]) if check
+           else None}
+    if check:
+        layout = sharding.band_layout(WIDTH, HEIGHT, world)
+        toff = sharding.band_offset(layout, rank)
+        what = f"band {rank} of {world} (toff {toff})"
+        b1, b3 = compare_forward(seen, WIDTH, HEIGHT, what,
+                                 band=(toff, layout.n_rows))
+        b2, b4, _ = compare_backward(seen, what)
+        rec["toff"] = toff
+        rec["kernel_err"] = {"expand_instances": b1,
+                             "composite_forward": b3,
+                             "composite_backward": b4,
+                             "reduce_instances": b2}
+    del seen, s1, o1, aux
+    ms = []
+    for _ in range(timed):
+        sync(dev)
+        t = time.perf_counter()
+        step_fn(s, o, cam, gt, bg, LOW_PASS, XYZ_LR, OPT_LEAVES)
+        sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+    rec["step_ms"] = ms
+    return rec
+
+
+def negative_offset_band():
+    """B1, B3 and B4 at tile offset -82 (the sharded step's band 0 at full
+    width, 29 tile rows) on a band whose rects start in the row above the
+    image (tests/torch_sharding_cases.py:band_case, 50,000 Gaussians):
+    each bit for bit with its plain version on the card, and equal to the
+    same band moved down one row at offset 0."""
+    grid_x, n_rows, n, m = (WIDTH + 15) // 16, 29, 50_000, MAX_INSTANCES
+    kw = dict(grid_x=grid_x, n_rows=n_rows, m=m, device=DEV)
+    case = SHARDING.band_case(grid_x=grid_x, n_rows=n_rows, n=n)
+    got = SHARDING.run_band(case, -grid_x, **kw)
+    want = SHARDING.run_band(case, -grid_x, plain=True, **kw)
+    moved = SHARDING.run_band(SHARDING.band_case(
+        grid_x=grid_x, n_rows=n_rows, n=n, shift_rows=1), 0, **kw)
+    row0 = int((got["end"] - got["start"])[:grid_x].sum())
+    if row0 == 0:
+        raise AssertionError("the band holds no instance in row -1")
+    for k in got:
+        a, b = got[k], want[k]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"toff -{grid_x}: {k} differs from its "
+                                 f"plain version")
+        if k not in ("cols", "pack") and not torch.equal(got[k], moved[k]):
+            raise AssertionError(f"toff -{grid_x}: {k} differs from the "
+                                 f"band moved down one row")
+    total = int(got["end"][-1])
+    print(f"B1, B3, B4 at toff -{grid_x} ({n_rows} rows, {total} instances, "
+          f"{row0} in row -1): bitwise equal to their plain versions and "
+          f"to the band moved down one row")
+    return {"instances": total, "row_minus1_instances": row0}
+
+
+def sharded_trainer_rank(rank, dev, scene_path, cfgs, single_dir, out_dir):
+    """A Trainer of 2 ranks on phase 7's scene (``sharded_trainer``);
+    rank 0 holds its params against the single-device run's. Returns
+    rank 0's record."""
+    with open(scene_path, "rb") as f:
+        scene = pickle.load(f)
+    log = []
+    tr = trainer_mod.Trainer(scene, cfgs, out_dir,
+                             device=dev, log_fn=log.append,
+                             tensorboard=False)
+    t = time.perf_counter()
+    state = tr.train(iterations=SHARD_TRAINER_ITERS, test_iterations=(),
+                     save_iterations=())
+    sync(dev)
+    train_s = time.perf_counter() - t
+    if rank:
+        return None
+    n = state.n_alive
+    err, over = {}, {}
+    for name, t in state.params._asdict().items():
+        d = np.abs(t.cpu().numpy()[:n] - np.load(
+            Path(single_dir) / f"{name}.npy", mmap_mode="r")[:n])
+        d = d.reshape(n, -1).max(axis=1)
+        err[name] = float(np.sort(d)[-1 - int(SHARD_OUTLIERS * n)])
+        over[name] = int((d >= 2e-3).sum())
+    return {"n_alive": n, "capacity": state.capacity,
+            "max_abs_err_but_outliers": err, "rows_over_2e-3": over,
+            "tier": tr.max_instances, "train_s": train_s,
+            "log": [line for line in log if line.startswith("[cap]")]}
+
+
+def sharded_trainer_configs(devices):
+    """Phase 7's configuration cut to SHARD_TRAINER_ITERS iterations with
+    one densify round, at 10, as tests/test_sharding.py:114-125."""
+    cfgs = trainer_configs(devices=devices)
+    cfgs["opt"] = dataclasses.replace(
+        cfgs["opt"], iterations=SHARD_TRAINER_ITERS, densify_from_iter=5,
+        densification_interval=10, densify_until_iter=40,
+        opacity_reset_interval=10_000)
+    return cfgs
+
+
+def ranks_where(share_device):
+    return ("ranks sharing one card over gloo: not a scaling figure"
+            if share_device else "one card per rank over nccl")
+
+
+def sharded_trainer(arrays, tmp, share_device=True):
+    """Trainer with devices=2 (two ranks sharing the card, or with
+    ``share_device`` False one card each) against devices=1 on phase 7's
+    scene: the same n_alive after the round at 10, params within 2e-3
+    (tests/test_sharding.py:98-138) in all but SHARD_OUTLIERS of each
+    leaf's rows."""
+    scene = trainer_scene(arrays)
+    scene_path = tmp / "scene.pkl"
+    with open(scene_path, "wb") as f:
+        pickle.dump(scene, f)
+    t = time.perf_counter()
+    tr = trainer_mod.Trainer(scene, sharded_trainer_configs(1), tmp / "one",
+                             device=DEV, log_fn=lambda *a: None,
+                             tensorboard=False)
+    state = tr.train(iterations=SHARD_TRAINER_ITERS, test_iterations=(),
+                     save_iterations=())
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    single = tmp / "single"
+    single.mkdir()
+    for name, v in state.params._asdict().items():
+        np.save(single / f"{name}.npy", v.cpu().numpy())
+    n1 = state.n_alive
+    del tr, state
+    rec = launch.spawn(sharded_trainer_rank, 2, device=DEV,
+                       share_device=share_device, timeout_s=900,
+                       args=(str(scene_path), sharded_trainer_configs(2),
+                             str(single), str(tmp / "two")))[0]
+    rec["single"] = {"n_alive": n1, "train_s": single_s}
+    if rec["n_alive"] != n1:
+        raise AssertionError(f"sharded Trainer: n_alive {rec['n_alive']} "
+                             f"against {n1} on one device")
+    worst = max(rec["max_abs_err_but_outliers"].values())
+    if not worst < 2e-3:
+        raise AssertionError(
+            f"sharded Trainer: params off by "
+            f"{rec['max_abs_err_but_outliers']} past the "
+            f"{int(SHARD_OUTLIERS * n1)} farthest rows (rows off by 2e-3 "
+            f"or more {rec['rows_over_2e-3']} of {n1})")
+    print(f"sharded Trainer (2 ranks, {ranks_where(share_device)}) "
+          f"against devices=1: "
+          f"n_alive {n1} equal, params within {worst:.3g} but for "
+          f"{int(SHARD_OUTLIERS * n1)} rows a leaf (rows off by 2e-3 or "
+          f"more: {rec['rows_over_2e-3']}), tier {rec['tier']}, "
+          f"{rec['train_s']:.1f} s against {single_s:.1f} s")
+    return rec
+
+
+def sharded_phase(arrays, gt0, aux0, first_step, kernels,
+                  share_device=True):
+    """Phase 11: the sharded step at phase 4's step 0 at D = 2 and 4 ranks
+    sharing the card over gloo (with ``share_device`` False, one card per
+    rank over nccl), held against the single-device step (``first_step``:
+    snapshot after step 0, ``aux0`` its aux) and timed beside it, its
+    rerun at D = 2, the band kernels, the sharded Trainer and the dry run.
+    Adds each kernel's launches per rank to ``kernels``. Returns the
+    phase's record."""
+    where = ranks_where(share_device)
+    rec = {"negative_offset_band": negative_offset_band(),
+           "ranks": where}
+    # the single-device step from the same start, timed as the ranks are
+    state0 = gmod.from_arrays(**perturbed(arrays), device=DEV)
+    opt0 = adam_mod.init(state0.params)
+    cam0 = pose(0, WIDTH, HEIGHT).render_inputs(DEV)
+    one_ms = []
+    for _ in range(SHARD_TIMED):
+        sync(DEV)
+        t = time.perf_counter()
+        step.train_step(
+            state0, opt0, cam0, gt0, torch.tensor(BG, device=DEV), LOW_PASS,
+            XYZ_LR, width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+            max_instances=MAX_INSTANCES, opt_cfg_leaves=OPT_LEAVES)
+        sync(DEV)
+        one_ms.append((time.perf_counter() - t) * 1e3)
+    del state0, opt0
+    rec["one_device_step_ms"] = one_ms
+    params, opt, stats = first_step
+    # a gradient below 1e-6 of its leaf's largest is at its rounding's
+    # level; Adam's first step may move such a param by up to 2·lr
+    floors = {k: 1e-6 * float(v.abs().max())
+              for k, v in opt.mu._asdict().items()}
+    lrs = dict(xyz=XYZ_LR, features_dc=OPT_LEAVES["feature_lr"],
+               features_rest=OPT_LEAVES["feature_lr"] / 20,
+               scaling=OPT_LEAVES["scaling_lr"],
+               rotation=OPT_LEAVES["rotation_lr"],
+               opacity=OPT_LEAVES["opacity_lr"])
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        np.save(tmp / "gt.npy", gt0.cpu().numpy())
+        for group, leaves in (("params", params), ("mu", opt.mu),
+                              ("nu", opt.nu)):
+            for name, v in leaves._asdict().items():
+                np.save(tmp / f"{group}.{name}.npy", v.cpu().numpy())
+        for name, v in zip(gmod.STAT_FIELDS, stats):
+            np.save(tmp / f"stats.{name}.npy", v.cpu().numpy())
+        for world in SHARD_WORLDS:
+            t = time.perf_counter()
+            ranks = launch.spawn(sharded_rank, world, device=DEV,
+                                 share_device=share_device, timeout_s=600,
+                                 args=(sizes(), str(tmp), floors, True,
+                                       SHARD_TIMED))
+            wall_s = time.perf_counter() - t
+            for r in ranks:
+                what = f"sharded step D={world} rank {r['rank']}"
+                if r["launches"] != {k: 1 for k in counters()}:
+                    raise AssertionError(f"{what}: launches {r['launches']}")
+                if r["overflow"]:
+                    raise AssertionError(f"{what} overflowed "
+                                         f"({r['num_instances']})")
+                if abs(r["loss"] - float(aux0.loss)) >= 1e-5 or \
+                        abs(r["l1"] - float(aux0.l1)) >= 1e-5:
+                    raise AssertionError(f"{what}: loss {r['loss']} l1 "
+                                         f"{r['l1']} against {aux0}")
+                if not max(r["max_abs_err"].values()) < 1e-5 or \
+                        not all(r["exact"].values()) or \
+                        any(q[0] > 2 * lrs[k] for k, q in
+                            r["small_gradient_params"].items()):
+                    raise AssertionError(
+                        f"{what}: {r['max_abs_err']} {r['exact']} "
+                        f"{r['small_gradient_params']}")
+                if r.get("kernel_err") and any(r["kernel_err"].values()):
+                    raise AssertionError(f"{what}: {r['kernel_err']}")
+            med = [float(np.median(r["step_ms"])) for r in ranks]
+            n_small = sum(q[1] for r in ranks
+                          for q in r["small_gradient_params"].values())
+            print(f"sharded step D={world}: loss {ranks[0]['loss']:.7f} "
+                  f"(one device {float(aux0.loss):.7f}), params and "
+                  f"moments within "
+                  f"{max(max(r['max_abs_err'].values()) for r in ranks):.3g}"
+                  f", denom and max_radii2d exact, band instances "
+                  f"{[r['band_instances'] for r in ranks]}, params with "
+                  f"a gradient below 1e-6 of their leaf's largest off by "
+                  f"1e-5 or more: {n_small}, B1-B4 bit for bit on every "
+                  f"band; median ms per step per rank "
+                  f"{[round(v, 3) for v in med]} ({where}; one device "
+                  f"{float(np.median(one_ms)):.3f})")
+            rec[f"D{world}"] = {"ranks": ranks, "median_step_ms": med,
+                                "wall_s": wall_s}
+            for k in kernels:
+                k.setdefault("launches_sharded", {})[str(world)] = [
+                    r["launches"][k["name"]] for r in ranks]
+        again = launch.spawn(sharded_rank, 2, device=DEV,
+                             share_device=share_device, timeout_s=600,
+                             args=(sizes(), str(tmp), floors, False, 0))
+        if [r["digest"] for r in again] != \
+                [r["digest"] for r in rec["D2"]["ranks"]]:
+            raise AssertionError("the sharded step at D=2 run again gives "
+                                 "other bits")
+        print("sharded step D=2 run again: the same bits on every rank")
+        rec["rerun_bitwise"] = True
+        rec["trainer"] = sharded_trainer(arrays, tmp, share_device)
+    rec["dryrun"] = entry_mod.dryrun_multichip(4, share_device=share_device)
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2031,6 +2422,10 @@ def main(out: Path | None = None):
     prod_rec = production_phase()
     # --- 10. the A/B paths, at phase 4's step 0 ------------------------------
     ab_rec = ab_phase(state0, cams[0], gts[0])
+    # --- 11. the sharded step, ranks sharing the card ----------------------
+    del state0, opt0
+    sharded_rec = sharded_phase(arrays, gts[0], auxes[0], first_step,
+                                kernels)
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
@@ -2076,6 +2471,7 @@ def main(out: Path | None = None):
         "cli": cli_rec,
         "production": prod_rec,
         "ab": ab_rec,
+        "sharded": sharded_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:

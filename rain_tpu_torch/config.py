@@ -127,7 +127,8 @@ class SystemParams:
     #   stops at this bound (densify rounds that would overflow it drop
     #   their appends — a logged memory budget rail for production runs)
     max_instances: int = 0         # 0 = auto
-    devices: int = 1               # 1 = one device; more is not ported yet
+    devices: int = 1               # 1 = one device; N > 1 = sharded over
+    #   the N ranks of a torch.distributed group; 0 = its world size
     log_every: int = 10
     seed: int = 0
     camera_cache: int = 0          # max GT images kept on the device (0 = all)

@@ -51,6 +51,14 @@ __device__ __forceinline__ float power_floor(float op, float alpha_min) {
   return logf(alpha_min / op) - kFloorMargin;
 }
 
+// The tile row of global tile gt in a grid grid_x tiles wide, by floor
+// division as the plain versions take it: a band's first tile row lies
+// above the image (a negative gt), where C's truncating / and % would put
+// the tile on row 0 at a negative column.
+__device__ __forceinline__ int tile_row(int gt, int grid_x) {
+  return (gt >= 0 ? gt : gt - grid_x + 1) / grid_x;
+}
+
 // The tile pixel (row-major index) of thread tid of a 256-thread block.
 __device__ __forceinline__ int pixel_of(int tid) {
   const int w = tid >> 5, lane = tid & 31;

@@ -9,7 +9,8 @@
 // grid in order) because Mosaic DMA windows must be aligned.
 //
 // Contract (tile_render.py:573-627). Tile t re-walks the pack columns
-// [starts[t], ends[t]) (global tile t + toff of a grid grid_x tiles wide)
+// [starts[t], ends[t]) (global tile t + toff of a grid grid_x tiles wide,
+// its row floor((t + toff) / grid_x), as in B3)
 // with B3's rules, given B3's output tiles (channel 5 final_T, channel 6
 // n_contrib) and the cotangent g_tiles; only channels r, g, b (0..2) and
 // final_T (5) of the cotangent are read. For each pixel and each instance
@@ -141,8 +142,9 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
   const int warp = tid >> 5;
   const int pix = rain_cull::pixel_of(tid);  // warp w: an 8x4 pixel block
   const int gt = t + toff;
-  const int tx0 = (gt % grid_x) * kTile;
-  const int ty0 = (gt / grid_x) * kTile;
+  const int gy = rain_cull::tile_row(gt, grid_x);
+  const int tx0 = (gt - gy * grid_x) * kTile;
+  const int ty0 = gy * kTile;
   const float px = (float)(tx0 + pix % kTile);
   const float py = (float)(ty0 + pix / kTile);
   const int64_t start = starts[t];

@@ -7,8 +7,10 @@
 // matmul, with double-buffered 256-wide DMA of the instance stream.
 //
 // Contract. Block t composites tile t (global tile t + toff of a grid
-// grid_x tiles wide) over the pack columns [starts[t], ends[t]), front to
-// back, one thread per pixel, with the reference's rules
+// grid_x tiles wide, its row floor((t + toff) / grid_x): toff < 0 puts a
+// band's first rows above the image) over the pack columns
+// [starts[t], ends[t]), front to back, one thread per pixel, with the
+// reference's rules
 // (cuda_rasterizer/forward.cu:251-369):
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  dx = xg - px (global pixels)
 //   skip when power > 0; alpha = min(0.99, op e^power); skip alpha < 1/255;
@@ -89,8 +91,9 @@ __global__ void __launch_bounds__(kPix) composite_fwd_kernel(
   const int lane = tid & 31;
   const int pix = rain_cull::pixel_of(tid);  // warp w: an 8x4 pixel block
   const int gt = t + toff;
-  const int tx0 = (gt % grid_x) * kTile;
-  const int ty0 = (gt / grid_x) * kTile;
+  const int gy = rain_cull::tile_row(gt, grid_x);
+  const int tx0 = (gt - gy * grid_x) * kTile;
+  const int ty0 = gy * kTile;
   const float px = (float)(tx0 + pix % kTile);
   const float py = (float)(ty0 + pix / kTile);
   const int start = starts[t];

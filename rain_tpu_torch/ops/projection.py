@@ -149,6 +149,8 @@ def preprocess(means3d: torch.Tensor,
                low_pass=0.3,
                scale_modifier: float = 1.0,
                grid: tuple[int, int] | None = None,
+               colors_override: torch.Tensor | None = None,
+               cov3d_override: torch.Tensor | None = None,
                tight_opacity_culling: bool = True,
                ) -> Preprocessed:
     """Vectorized equivalent of preprocessCUDA.
@@ -162,6 +164,11 @@ def preprocess(means3d: torch.Tensor,
       grid: (grid_x, grid_y), the tile grid the rects are clamped to; by
         default the image's own. A bucketed render passes the bucket's grid
         (ops.render ``render_wh``).
+      colors_override: optional [N, 3] colours in place of the SH
+        evaluation (the sharded step evaluates SH apart from the
+        geometry, parallel.sharding).
+      cov3d_override: optional [N, 6] packed 3D covariances in place of
+        the ones built from scales and quats.
       tight_opacity_culling: shrink each rect to the ellipse where the
         Gaussian can reach alpha >= 1/255 (see below).
 
@@ -182,7 +189,10 @@ def preprocess(means3d: torch.Tensor,
 
     in_front = p_view[:, 2] > NEAR_Z                          # auxiliary.h:143
 
-    cov3d = quat_scale_to_cov3d(scales, quats, scale_modifier)
+    if cov3d_override is None:
+        cov3d = quat_scale_to_cov3d(scales, quats, scale_modifier)
+    else:
+        cov3d = cov3d_override
     cov = project_cov2d(p_view, cov3d, world_view, focal_x, focal_y,
                         tan_fovx, tan_fovy, low_pass)
 
@@ -242,7 +252,10 @@ def preprocess(means3d: torch.Tensor,
     tiles_touched = torch.where(visible & reachable, rect_w * rect_h,
                                 torch.zeros_like(rect_w)).to(torch.int32)
 
-    rgb = sh_ops.sh_to_rgb(sh_degree, shs, means3d, camera_center)
+    if colors_override is None:
+        rgb = sh_ops.sh_to_rgb(sh_degree, shs, means3d, camera_center)
+    else:
+        rgb = colors_override
 
     return Preprocessed(
         xy=xy,

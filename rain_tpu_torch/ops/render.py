@@ -31,8 +31,9 @@ gradient, and its gradient is the per-Gaussian screen-space gradient the
 densification statistics read. It is in pixel units; the statistics scale
 it by (W/2, H/2) (backward.cu:450-451,535-536).
 
-The colour and covariance overrides of the JAX ``render`` are off the
-training path and not ported yet.
+``colors_override`` [N, 3] and ``cov3d_override`` [N, 6] replace the SH
+colours and the covariances built from scales and quats, as in the JAX
+``render``.
 """
 
 from __future__ import annotations
@@ -176,6 +177,8 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
            scale_modifier: float = 1.0,
            max_instances: int,
            xy_tap: torch.Tensor | None = None,
+           colors_override: torch.Tensor | None = None,
+           cov3d_override: torch.Tensor | None = None,
            need_depth: bool = True,
            render_wh: tuple[int, int] | None = None,
            on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
@@ -184,6 +187,8 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
 
     camera: dict from data.cameras.Camera.render_inputs().
     xy_tap: optional [N, 2] screen-space tap (see the module docstring).
+    colors_override, cov3d_override: optional [N, 3] colours and [N, 6]
+      3D covariances in place of the computed ones (ops.projection).
     need_depth=False (training steps) returns a zero depth channel.
     render_wh: optional (w, h) true image size. width/height are then the
       tile-aligned bucket that sets the tile grid and the output's shape,
@@ -205,7 +210,8 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
         camera_center=camera["camera_center"],
         tan_fovx=camera["tanfovx"], tan_fovy=camera["tanfovy"],
         width=rw, height=rh, grid=(grid_x, grid_y),
-        low_pass=low_pass, scale_modifier=scale_modifier)
+        low_pass=low_pass, scale_modifier=scale_modifier,
+        colors_override=colors_override, cov3d_override=cov3d_override)
     on_stage("preprocess", prep)
 
     tiles, num_instances, overflow = render_tiles(

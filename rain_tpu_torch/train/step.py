@@ -37,6 +37,28 @@ class StepAux(NamedTuple):
     n_alive: int
 
 
+def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
+                opt: adam_mod.AdamState, opt_cfg_leaves: dict, xyz_lr):
+    """The step's Adam update (``adam.update``) at the step's learning
+    rates; returns (params, AdamState)."""
+    # f32 learning rates, as the JAX step's traced leaves: features_rest's
+    # is feature_lr / 20 in f32. Each is a device fill, which rounds the
+    # float to f32 as torch.tensor(v, dtype=float32) does but, unlike a
+    # copy from pageable host memory, does not wait for the device
+    dev = params.xyz.device
+    lr = {k: torch.full((), v, dtype=torch.float32, device=dev)
+          for k, v in opt_cfg_leaves.items()}
+    lrs = gmod.GaussianParams(
+        xyz=xyz_lr,
+        features_dc=lr["feature_lr"],
+        features_rest=lr["feature_lr"] / 20.0,
+        scaling=lr["scaling_lr"],
+        rotation=lr["rotation_lr"],
+        opacity=lr["opacity_lr"],
+    )
+    return adam_mod.update(params, grads, opt, lrs)
+
+
 def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
                camera: dict, gt_image: torch.Tensor, bg: torch.Tensor,
                low_pass, xyz_lr, *,
@@ -91,21 +113,8 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
             state, tap_grad, out.radii, rw, rh)
         on_stage("densify_stats", state)
 
-    # f32 learning rates, as the JAX step's traced leaves: features_rest's
-    # is feature_lr / 20 in f32. Each is a device fill, which rounds the
-    # float to f32 as torch.tensor(v, dtype=float32) does but, unlike a
-    # copy from pageable host memory, does not wait for the device
-    lr = {k: torch.full((), v, dtype=torch.float32, device=dev)
-          for k, v in opt_cfg_leaves.items()}
-    lrs = gmod.GaussianParams(
-        xyz=xyz_lr,
-        features_dc=lr["feature_lr"],
-        features_rest=lr["feature_lr"] / 20.0,
-        scaling=lr["scaling_lr"],
-        rotation=lr["rotation_lr"],
-        opacity=lr["opacity_lr"],
-    )
-    new_params, new_opt = adam_mod.update(state.params, grads, opt, lrs)
+    new_params, new_opt = adam_update(state.params, grads, opt,
+                                      opt_cfg_leaves, xyz_lr)
     on_stage("adam", (new_params, new_opt))
     state = state._replace(params=new_params)
 

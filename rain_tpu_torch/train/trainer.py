@@ -16,7 +16,22 @@ to the reference, as in rain_tpu:
   read only after the next step has been queued, so the host never drains
   the device's queue to read a flag (see ``_enqueue_step``).
 
-One device only: ``system.devices`` other than 1 raises.
+Sharded mode (``system.devices`` N > 1, rain_tpu's n_devices; 0 means the
+group's world size): one Trainer per rank of an initialised
+``torch.distributed`` group of world size N (parallel.distributed), every
+rank with the same scene and configuration. Rank r holds shard r of the
+parameters, Adam's moments and the densify statistics, and trains with
+parallel.sharding's step, whose flags are already reduced over the ranks,
+so every rank takes the same decisions (an overflow on any band retries
+the step on every rank). The capacity is a multiple of N (at creation, at
+growth and at resume); the instance tier is per band,
+max(round_up(2·base/N, 65536), 65536); cameras are never bucketed.
+Densify rounds and capacity growth gather the whole state on every rank,
+run the single-device code there with the Trainer's seeded generator
+(the same draws on every rank) and keep shard r; the opacity reset is
+elementwise and runs on the shard. Reports and saves gather the state (a
+collective every rank joins); only rank 0 renders, logs to TensorBoard and
+writes files, as rain_tpu's process 0.
 """
 
 from __future__ import annotations
@@ -38,6 +53,8 @@ from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import losses as loss_ops
+from rain_tpu_torch.parallel import distributed
+from rain_tpu_torch.parallel import sharding
 from rain_tpu_torch.train import checkpoint as ckpt
 from rain_tpu_torch.train import schedules
 from rain_tpu_torch.train import step as step_mod
@@ -145,16 +162,28 @@ class Trainer:
         self.opt_cfg = cfgs["opt"]
         self.rain = cfgs["rain"]
         self.system = cfgs["system"]
-        if self.system.devices != 1:
+        # devices: 1 = one device; N > 1 = sharded over the N ranks of the
+        # default group; 0 = the group's world size
+        self.n_devices = self.system.devices or distributed.world_size()
+        if self.n_devices > 1 and distributed.world_size() != \
+                self.n_devices:
             raise ValueError(
-                f"system.devices = {self.system.devices}: training on more "
-                f"than one device is not ported yet (ROADMAP.md A.6)")
+                f"system.devices = {self.n_devices} needs an initialised "
+                f"torch.distributed group of world size {self.n_devices} "
+                f"(parallel.distributed.initialize; the train CLI's "
+                f"--dist_init), found world size "
+                f"{distributed.world_size()}")
+        if self.n_devices > 1 and viewer is not None:
+            raise ValueError("the viewer serves a run on one device")
+        self.rank = distributed.rank()
+        # only rank 0 writes files, logs to TensorBoard and renders reports
+        self.is_rank0 = self.rank == 0
         self.model_path = Path(model_path)
         self.model_path.mkdir(parents=True, exist_ok=True)
         self.log = log_fn
         self.viewer = viewer    # a viewer.network_gui.NetworkGUI, or None
         self.tb = None
-        if tensorboard:
+        if tensorboard and self.is_rank0:
             try:  # same optional dependency handling as train.py:17-21
                 from torch.utils.tensorboard import SummaryWriter
                 self.tb = SummaryWriter(str(self.model_path))
@@ -175,13 +204,22 @@ class Trainer:
         self.spatial_lr_scale = scene.nerf_radius
 
         n0 = scene.points.shape[0]
-        cap = self.system.capacity or max(_round_up(n0 * 2, 4096), 16384)
-        self.state = gmod.create_from_pcd(
+        cap = self._capacity(
+            self.system.capacity or max(_round_up(n0 * 2, 4096), 16384))
+        state = gmod.create_from_pcd(
             scene.points, scene.colors, sh_degree=self.model.sh_degree,
             capacity=cap, device=self.device)
-        self.opt_state = adam_mod.init(self.state.params)
-        self.max_instances = self.system.max_instances or max(
+        self._keep(state, adam_mod.init(state.params))
+        base_instances = self.system.max_instances or max(
             _round_up(n0 * 8, 65536), 262144)
+        if self._sharded:
+            # each band bins ~1/N of the instances (2x slack for uneven
+            # bands), as rain_tpu/train/trainer.py:140-150
+            self.max_instances = max(
+                _round_up(2 * base_instances // self.n_devices, 65536),
+                65536)
+        else:
+            self.max_instances = base_instances
 
         bg = [1.0, 1.0, 1.0] if self.model.white_background else [0, 0, 0]
         self.background = torch.tensor(bg, dtype=torch.float32,
@@ -194,15 +232,16 @@ class Trainer:
         self.profile_wall_ms = None  # and the host-clock time it covered
         self._profile_t0 = None
         spec = self.system.profile_steps
-        if spec:
+        if spec and self.is_rank0:
             a, _, b = spec.partition("-")
             self._profile_range = (int(a), int(b or a))
 
         # Resolution bucketing (rain_tpu/train/trainer.py:163-173): with
         # mixed camera sizes, cameras are padded to tile-aligned buckets
         # and the step masks the loss to the true size
+        # The sharded step keeps exact sizes, as rain_tpu's
         sizes = {(c.width, c.height) for c in scene.train_cameras}
-        self._bucketed = len(sizes) > 1
+        self._bucketed = len(sizes) > 1 and not self._sharded
 
         self.iteration = 0
         self.low_pass = 0.3
@@ -222,6 +261,32 @@ class Trainer:
         # (iteration, view, tier, re-render tier) of each report view that
         # overflowed the training tier and was rendered again
         self.report_rerenders = []
+
+    # -- the state of a sharded run ---------------------------------------
+    @property
+    def _sharded(self) -> bool:
+        return self.n_devices > 1
+
+    def _capacity(self, cap: int) -> int:
+        """``cap`` rounded up to a multiple of the ranks (the sharded step
+        splits the capacity axis over them)."""
+        return _round_up(cap, self.n_devices) if self._sharded else cap
+
+    def _whole(self):
+        """(state, opt) of the whole capacity: in a sharded run gathered
+        from every rank's shard, a collective every rank must join."""
+        if not self._sharded:
+            return self.state, self.opt_state
+        return (sharding.gather_state(self.state),
+                sharding.gather_opt(self.opt_state))
+
+    def _keep(self, state, opt):
+        """Hold (state, opt) of the whole capacity: this rank's shard of
+        it in a sharded run."""
+        if self._sharded:
+            state = sharding.shard_state(state, self.rank, self.n_devices)
+            opt = sharding.shard_opt(opt, self.rank, self.n_devices)
+        self.state, self.opt_state = state, opt
 
     # -- camera handling --------------------------------------------------
     def _camera_bundle(self, cam):
@@ -261,30 +326,30 @@ class Trainer:
                            device=self.device)
 
     # -- capacity management ----------------------------------------------
-    def _maybe_grow(self, force: bool = False):
-        """Grow the Gaussian capacity when the live count nears it — or
-        unconditionally when a densify round overflowed (its appends were
-        dropped; the next round must have room, like the reference's
-        dynamic tensor growth)."""
-        n = self.state.n_alive
-        cap = self.state.capacity
+    def _maybe_grow(self, state, opt, force: bool = False):
+        """(state, opt) of the whole capacity, grown when the live count
+        nears it — or unconditionally when a densify round overflowed (its
+        appends were dropped; the next round must have room, like the
+        reference's dynamic tensor growth)."""
+        n = state.n_alive
+        cap = state.capacity
         if force or n > 0.6 * cap:
-            new_cap = _round_up(cap * 2, 4096)
+            new_cap = self._capacity(_round_up(cap * 2, 4096))
             limit = self.system.max_capacity
             if limit and new_cap > limit:
                 if cap >= limit:
                     self.log(f"[cap] at max_capacity {limit} — not "
                              f"growing (alive {n}); densify appends "
                              f"beyond capacity will be dropped")
-                    return
+                    return state, opt
                 new_cap = _round_up(limit, 4096)
             self.log(f"[cap] growing capacity {cap} -> {new_cap} "
                      f"(alive {n})")
-            self.state = gmod.grow_capacity(self.state, new_cap)
-            self.opt_state = adam_mod.AdamState(
-                mu=self._pad_params(self.opt_state.mu, new_cap),
-                nu=self._pad_params(self.opt_state.nu, new_cap),
-                step=self.opt_state.step)
+            state = gmod.grow_capacity(state, new_cap)
+            opt = adam_mod.AdamState(
+                mu=self._pad_params(opt.mu, new_cap),
+                nu=self._pad_params(opt.nu, new_cap), step=opt.step)
+        return state, opt
 
     @staticmethod
     def _pad_params(params: gmod.GaussianParams, new_cap: int):
@@ -306,6 +371,15 @@ class Trainer:
         opt, flags) with flags a _Flags on its way to the host."""
         (cam, cam_arrays, gt, bg, low_pass, xyz_lr, sh_deg, opt_leaves,
          update_stats) = args
+        if self._sharded:
+            step = sharding.make_sharded_train_step(
+                width=cam.width, height=cam.height, sh_degree=sh_deg,
+                max_instances_per_shard=self.max_instances,
+                lambda_dssim=self.opt_cfg.lambda_dssim,
+                update_densify_stats=update_stats)
+            state, opt, aux = step(self.state, self.opt_state, cam_arrays,
+                                   gt, bg, low_pass, xyz_lr, opt_leaves)
+            return state, opt, _Flags(aux)
         if self._bucketed:
             width = _round_up(cam.width, 16)
             height = _round_up(cam.height, 16)
@@ -346,8 +420,12 @@ class Trainer:
         """Dump the pre-step state and raise (reference
         dgr/__init__.py:73-80)."""
         dump = self.model_path / f"snapshot_iter{iteration}.npz"
-        ckpt.save_checkpoint(dump, prev_state, prev_opt, iteration,
-                             self.spatial_lr_scale)
+        if self._sharded:   # every rank sees the same loss and gets here
+            prev_state = sharding.gather_state(prev_state)
+            prev_opt = sharding.gather_opt(prev_opt)
+        if self.is_rank0:
+            ckpt.save_checkpoint(dump, prev_state, prev_opt, iteration,
+                                 self.spatial_lr_scale)
         raise FloatingPointError(
             f"non-finite loss at iteration {iteration}; "
             f"pre-step state dumped to {dump}")
@@ -425,11 +503,13 @@ class Trainer:
             # headroom (reference restore keeps the saved tensor sizes)
             with np.load(start_checkpoint) as z:
                 n_ck = int(z["n_alive"])
-            cap = max(self.state.capacity,
-                      _round_up(max(n_ck * 5 // 3, 4096), 4096))
-            self.state, self.opt_state, first_iter, self.spatial_lr_scale = \
+            cap = self._capacity(max(
+                self.state.capacity * self.n_devices,
+                _round_up(max(n_ck * 5 // 3, 4096), 4096)))
+            state, opt, first_iter, self.spatial_lr_scale = \
                 ckpt.load_checkpoint(start_checkpoint, capacity=cap,
                                      device=self.device)
+            self._keep(state, opt)
             self.log(f"[ckpt] resumed from {start_checkpoint} at iteration "
                      f"{first_iter}")
 
@@ -489,22 +569,24 @@ class Trainer:
                 self.report(iteration)
             if iteration in save_iterations:
                 self.flush_pending()
-                path = (self.model_path / "point_cloud" /
-                        f"iteration_{iteration}" / "point_cloud.ply")
-                ckpt.save_ply_snapshot(path, self.state)
-                self.log(f"[{iteration}] saved {path}")
+                state, _ = self._whole()
+                if self.is_rank0:
+                    path = (self.model_path / "point_cloud" /
+                            f"iteration_{iteration}" / "point_cloud.ply")
+                    ckpt.save_ply_snapshot(path, state)
+                    self.log(f"[{iteration}] saved {path}")
 
             # densification cadence (train.py:132-143)
             if in_densify and iteration > opt_cfg.densify_from_iter and \
                     iteration % opt_cfg.densification_interval == 0:
                 self.flush_pending()   # densify mutates verified state
-                self._maybe_grow()
+                state, opt = self._maybe_grow(*self._whole())
                 use_size = iteration > opt_cfg.opacity_reset_interval
                 abe = iteration <= self.rain.warmup_iter
-                noise = self._split_noise(self.state.capacity)
-                self.state, self.opt_state, info = \
+                noise = self._split_noise(state.capacity)
+                state, opt, info = \
                     densify_mod.densify_and_prune(
-                        self.state, self.opt_state, noise,
+                        state, opt, noise,
                         max_grad=opt_cfg.densify_grad_threshold,
                         min_opacity=0.005,
                         extent=self.scene.nerf_radius,
@@ -515,7 +597,8 @@ class Trainer:
                         abe_split=abe)
                 if info.overflow:
                     self.log("[cap] densify overflow — growing next round")
-                    self._maybe_grow(force=True)
+                    state, opt = self._maybe_grow(state, opt, force=True)
+                self._keep(state, opt)
             if in_densify and (
                     iteration % opt_cfg.opacity_reset_interval == 0 or
                     (self.model.white_background and
@@ -545,13 +628,15 @@ class Trainer:
 
             if iteration in checkpoint_iterations:
                 self.flush_pending()
-                path = self.model_path / f"chkpnt{iteration}.npz"
-                ckpt.save_checkpoint(path, self.state, self.opt_state,
-                                     iteration, self.spatial_lr_scale)
-                self.log(f"[{iteration}] checkpoint {path}")
+                state, opt = self._whole()
+                if self.is_rank0:
+                    path = self.model_path / f"chkpnt{iteration}.npz"
+                    ckpt.save_checkpoint(path, state, opt, iteration,
+                                         self.spatial_lr_scale)
+                    self.log(f"[{iteration}] checkpoint {path}")
         self.flush_pending()
         self._profile_tick(iterations + 1)   # close a still-open trace
-        return self.state
+        return self._whole()[0]
 
     def _profile_tick(self, iteration: int):
         """Start/stop the torch.profiler trace of --profile_steps A-B (the
@@ -606,12 +691,13 @@ class Trainer:
 
     # -- evaluation (training_report, train.py:179-224) --------------------
     def _render_whole(self, cam_arrays, width, height, what,
-                      scale_modifier=1.0):
-        """``render_whole`` of the current state from the training tier,
-        each re-render logged. The training tier stays as it is, so the
-        training schedule is rain_tpu's."""
+                      scale_modifier=1.0, state=None):
+        """``render_whole`` of ``state`` (by default the current one)
+        from the training tier, each re-render logged. The training tier
+        stays as it is, so the training schedule is rain_tpu's."""
         out, again = render_whole(
-            self.state, cam_arrays, self.background, self.low_pass,
+            self.state if state is None else state, cam_arrays,
+            self.background, self.low_pass,
             scale_modifier, width=width, height=height,
             sh_degree=self.model.sh_degree, max_instances=self.max_instances)
         if again is not None:
@@ -620,12 +706,14 @@ class Trainer:
                      f"{again}")
         return out, again
 
-    def _report_render(self, iteration, cam, cam_arrays):
-        """A report view rendered whole; each re-render is recorded in
+    def _report_render(self, iteration, cam, cam_arrays, state=None):
+        """A report view of ``state`` (by default the current one)
+        rendered whole; each re-render is recorded in
         ``report_rerenders``."""
         out, again = self._render_whole(
             cam_arrays, cam.width, cam.height,
-            f"[ITER {iteration}] report view {cam.image_name}")
+            f"[ITER {iteration}] report view {cam.image_name}",
+            state=state)
         if again is not None:
             self.report_rerenders.append(
                 (iteration, cam.image_name, self.max_instances, again))
@@ -635,7 +723,12 @@ class Trainer:
     def report(self, iteration):
         """PSNR, L1, SSIM and, with local VGG weights, LPIPS of the test
         cameras and of 5 training cameras, each rendered whole
-        (``_report_render``)."""
+        (``_report_render``). In a sharded run every rank gathers the
+        state and rank 0 alone renders, logs and writes; the other ranks
+        return {}."""
+        state, _ = self._whole()
+        if not self.is_rank0:
+            return {}
         lpips_fn = lpips_fn_or_none(log_fn=self.log, device=self.device)
         configs = [("test", self.scene.test_cameras),
                    ("train", [self.scene.train_cameras[
@@ -654,7 +747,8 @@ class Trainer:
                 # bucketed training pads the cached GT; eval renders at
                 # the exact camera size
                 gt = gt[:, :cam.height, :cam.width]
-                out = self._report_render(iteration, cam, cam_arrays)
+                out = self._report_render(iteration, cam, cam_arrays,
+                                          state)
                 img = torch.clamp(out.render, 0.0, 1.0)
                 gtc = torch.clamp(gt, 0.0, 1.0)
                 if self._tb_images and idx < 5:   # train.py:200-203
@@ -686,12 +780,11 @@ class Trainer:
                         self.tb.add_scalar(
                             f"{name}/loss_viewpoint - {k}", v, iteration)
         if self.tb is not None:                       # train.py:218-221
-            alive = gmod.alive_mask(self.state)
-            opac = torch.sigmoid(self.state.params.opacity[:, 0])
+            alive = gmod.alive_mask(state)
+            opac = torch.sigmoid(state.params.opacity[:, 0])
             self.tb.add_histogram("scene/opacity_histogram",
                                   opac[alive].cpu().numpy(), iteration)
-            self.tb.add_scalar("total_points", self.state.n_alive,
-                               iteration)
+            self.tb.add_scalar("total_points", state.n_alive, iteration)
         self.history.append({"iteration": iteration, **results})
         with (self.model_path / "log_file.txt").open("a") as f:
             f.write(json.dumps({"iteration": iteration, **results}) + "\n")

@@ -417,3 +417,92 @@ def test_entry_on_card_matches_cpu(cuda):
     fn_c, args_c = entry_mod.entry("cpu")
     torch.testing.assert_close(got.cpu(), fn_c(*args_c), rtol=1e-4,
                                atol=3e-5)
+
+
+def test_band_kernels_at_negative_offset_match_plain_versions(cuda):
+    """B1, B3 and B4 at tile offset -grid_x (the sharded step's band 0),
+    on a band whose rects start in the row above the image: bit for bit
+    with their plain versions (which floor-divide the global tile id), and
+    with the same band moved down one row at offset 0."""
+    import torch_sharding_cases as cases
+    gx = 6
+    case = cases.band_case()
+    got = cases.run_band(case, -gx, device=cuda)
+    want = cases.run_band(case, -gx, plain=True, device=cuda)
+    assert int((got["tiles"][:gx, :, tile_render.CH_NCONTRIB] > 0).sum()) > 0
+    for k in got:
+        a, b = got[k], want[k]
+        if a.is_floating_point():     # bit for bit, signed zeros included
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    moved = cases.run_band(cases.band_case(shift_rows=1), 0, device=cuda)
+    for k in ("keys", "start", "end", "tiles", "d_pack"):
+        assert torch.equal(got[k], moved[k]), k
+
+
+def test_colors_override_on_card_matches_cpu(cuda):
+    """render's colors_override on the card: the CPU path's image at the
+    forward bar, and the SH colours passed as the override give the
+    render's own bits."""
+    from rain_tpu_torch.ops import render as render_ops
+    from rain_tpu_torch.ops import sh as sh_ops
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        st = _state(dev)
+        scales, quats, opac, shs = gmod.activate(st.params)
+        kw = dict(camera=_camera(dev), width=W, height=H, sh_degree=3,
+                  bg=torch.zeros(3, device=dev), max_instances=M)
+        colours = torch.linspace(0, 1, 3 * st.capacity,
+                                 device=dev).view(-1, 3)
+        outs.append(render_ops.render(
+            st.params.xyz, scales, quats, opac, shs, gmod.alive_mask(st),
+            colors_override=colours, **kw).render)
+        if dev.type == "cuda":
+            base = render_ops.render(st.params.xyz, scales, quats, opac, shs,
+                                     gmod.alive_mask(st), **kw)
+            same = render_ops.render(
+                st.params.xyz, scales, quats, opac, shs, gmod.alive_mask(st),
+                colors_override=sh_ops.sh_to_rgb(
+                    3, shs, st.params.xyz, kw["camera"]["camera_center"]),
+                **kw)
+            assert torch.equal(base.render, same.render)
+    torch.testing.assert_close(outs[0].cpu(), outs[1], rtol=1e-4, atol=3e-5)
+
+
+def test_sharded_step_on_shared_card_matches_train_step(cuda):
+    """Two gloo ranks sharing the card (gloo takes the CUDA tensors)
+    against train_step on the card, at tests/test_sharding.py:60-76's
+    bars, and a rerun's bits."""
+    import torch_sharding_cases as cases
+    from rain_tpu_torch.parallel import launch
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-0.8, 0.8, (80, 2)),
+                          rng.uniform(2.5, 5.0, (80, 1))], 1).astype(
+        np.float32)
+    st = gmod.create_from_pcd(pts, rng.uniform(0, 1, (80, 3)).astype(
+        np.float32), sh_degree=3, capacity=128, knn_window=16, device="cpu")
+    start = ({k: v.numpy() for k, v in st.params._asdict().items()},
+             st.n_alive)
+    state, opt, cam, gt, bg = cases.step_inputs(*start, cuda)
+    s, o, aux = step.train_step(
+        state, opt, cam, gt, bg, cases.LOW_PASS,
+        torch.tensor(cases.XYZ_LR, device=cuda), width=cases.W,
+        height=cases.H, sh_degree=3, max_instances=4096,
+        opt_cfg_leaves=cases.OPT_LEAVES)
+    want = cases._numpy(s, o, aux)
+    runs = [launch.spawn(cases.sharded_step, 2, device="cuda",
+                         share_device=True, timeout_s=300,
+                         args=(*start, 4096))[0] for _ in range(2)]
+    got = runs[0]
+    assert abs(got["loss"] - want["loss"]) < 1e-5
+    assert abs(got["l1"] - want["l1"]) < 1e-5
+    for group in ("params", "mu", "nu"):
+        for name, a in got[group].items():
+            assert np.abs(a - want[group][name]).max() < 1e-5, (group, name)
+    np.testing.assert_allclose(got["stats"]["xyz_gradient_accum"],
+                               want["stats"]["xyz_gradient_accum"],
+                               atol=1e-5, rtol=0)
+    for name in ("denom", "max_radii2d"):
+        np.testing.assert_array_equal(got["stats"][name],
+                                      want["stats"][name])
+    assert cases.digest(runs[0]) == cases.digest(runs[1])

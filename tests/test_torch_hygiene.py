@@ -32,12 +32,14 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "rain_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ablate.py",
+     ROOT / "chip_multicard.py"]
 # numpy and torch only: chip_smoke.py loads them by path
 SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
                  ROOT / "tests" / "torch_reduce_cases.py",
                  ROOT / "tests" / "torch_trainer_trace.py",
-                 ROOT / "tests" / "torch_colmap_scene.py"]
+                 ROOT / "tests" / "torch_colmap_scene.py",
+                 ROOT / "tests" / "torch_sharding_cases.py"]
 # modules the walk must find, one of each package
 WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",
@@ -45,7 +47,9 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.scripts.train", "rain_tpu_torch.scripts.render",
           "rain_tpu_torch.scripts.metrics",
           "rain_tpu_torch.scripts.production_30k", "rain_tpu_torch.entry",
-          "rain_tpu_torch.ops.sort")
+          "rain_tpu_torch.ops.sort", "rain_tpu_torch.parallel.sharding",
+          "rain_tpu_torch.parallel.distributed",
+          "rain_tpu_torch.parallel.launch", "rain_tpu_torch.parallel.scaling")
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
