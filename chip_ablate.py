@@ -656,7 +656,8 @@ def step0_inputs():
     state0 = gmod.from_arrays(**smoke.perturbed(arrays), device=smoke.DEV)
     _, seen = smoke.train(state0, adam_mod.init(state0.params), cam,
                           gt.render, smoke.WIDTH, smoke.HEIGHT)
-    b1_args, b3_args = smoke.kernel_inputs(seen, smoke.WIDTH, smoke.HEIGHT)
+    b1_args, b3_args = smoke.kernel_inputs(seen, smoke.WIDTH, smoke.HEIGHT,
+                                           smoke.MAX_INSTANCES)
     return (b1_args, b3_args, seen["composite_bwd_B4"][0],
             seen["reduce_B2"][:3])
 

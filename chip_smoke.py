@@ -185,9 +185,36 @@ Phases, in order; any failure exits non-zero before the result lines:
    sharing one card: not a scaling figure), each band's instances, the
    Trainers' times.
 
+12. The end-state scale, through rain_tpu_torch.scripts: bench.py's 1m
+   and 4m tiers (1,048,576 and 4,194,304 Gaussians, SH degree 3 with zero
+   f_rest, log-scales -5.2 and -5.9, tiers 2,097,152 and 6,291,456) at its
+   camera and 1297x840, each through probe_scale.run_tier: step 0 and 10
+   more steps, the launch counters set to 0 just before and read just
+   after (each kernel once per step, 3 profiled steps included). Checked:
+   step 0's instances are BENCH_r05.json's, 1,644,592 and 5,436,763, with
+   no overflow; B1-B4 of step 0 bit for bit against their plain versions
+   (phase 4's helpers), then timed beside their bounds. Then
+   knn_deviation's clustered cloud of 1,572,864 points: the exact search
+   completes and the Morton-window search lies on no row below it by
+   more than 1e-6 relative. Then sustained_growth's run (262,144 points
+   of bench.py's box, four cameras on a noise image, densify rounds from
+   500, max_capacity 2,500,000) cut from 3,600 iterations to 1,350, its
+   loop recorded and its launch counters set to 0 just before and read
+   just after (each kernel once per dispatched step): it must grow the
+   capacity 262,144 -> 524,288 -> 1,048,576 -> 2,097,152, retry
+   overflows at the tiers 1,572,864 and 2,097,152, keep no overflowed
+   step, hold alive at 1000 within 10 % of docs/runs/
+   sustained_growth_r5.log's 496,434, and a train_step at its end state
+   makes no synchronising call. Recorded: per tier the first step, the
+   host median of 10 steps, the device's busy time and operations per
+   step (torch.profiler), the peak memory and each kernel's ms and bound
+   ms; the KNN's times and error statistics; the growth run's alive every
+   50 iterations, growths, retries, rounds, host ms per iteration, peak
+   memory and wall time.
+
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
-(each kernel's launches in phase 4, and in phases 8, 9, 10 and 11) and,
-last,
+(each kernel's launches in phase 4, and in phases 8, 9, 10, 11 and 12,
+and its ms and bound ms at phase 12's tiers) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -232,9 +259,12 @@ from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
 from rain_tpu_torch.parallel import distributed, launch, sharding
+from rain_tpu_torch.scripts import knn_deviation
 from rain_tpu_torch.scripts import metrics as metrics_cli
+from rain_tpu_torch.scripts import probe_scale
 from rain_tpu_torch.scripts import production_30k
 from rain_tpu_torch.scripts import render as render_cli
+from rain_tpu_torch.scripts import sustained_growth
 from rain_tpu_torch.scripts import train as train_cli
 from rain_tpu_torch.train import checkpoint
 from rain_tpu_torch.train import step
@@ -254,10 +284,12 @@ OPT_LEAVES = {"feature_lr": 0.0025, "opacity_lr": 0.05,      # bench.py:79
               "scaling_lr": 0.005, "rotation_lr": 0.001}
 # H100 SXM published peaks: HBM bytes/s, and f32 operations/s outside
 # the tensor cores. The published 67 TFLOP/s counts a fused multiply-add
-# as two operations; the kernels are built with -fmad=false, so each add
-# or multiply issues alone, at half that rate.
+# as two operations, as the counts below count a product and a sum. The
+# kernels are built with -fmad=false (to round as their plain versions),
+# which halves the rate they can reach; that is a choice of the build,
+# not a floor of the function, so a bound takes the full rate.
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_NOFMA_OPS_S = 67e12 / 2
+PEAK_F32_OPS_S = 67e12
 # cycles of the spin kernel queued ahead of a timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
 # f32 operations per (pixel, instance) pair of the compositor: the power
@@ -367,21 +399,6 @@ def train(state, opt, cam, gt, width, height, events=None,
     return out, seen
 
 
-def kernel_inputs(seen, width, height, max_instances=None, band=None):
-    """The inputs that kernels B1 and B3 were given in a frame or step
-    (at the tier max_instances, MAX_INSTANCES if None), or with band =
-    (tile offset, tile rows) in a band of the sharded step: B1's (args,
-    kwargs) and B3's args."""
-    grid_x = (width + 15) // 16
-    toff, n_rows = band or (0, (height + 15) // 16)
-    d = seen["depth_sort"]
-    start, end = seen["tile_ranges"]
-    return (((d.table, d.tiles, d.offs, d.rect_w, d.rect_base),
-             dict(grid_x=grid_x, tile_offset=toff, n_tiles=grid_x * n_rows,
-                  max_instances=max_instances or MAX_INSTANCES)),
-            (seen["tile_sort_gather"], start, end, toff, grid_x))
-
-
 # (name, source, the TPU kernel it replaces) of B1, B3, B4 and B2
 KERNELS = (
     ("expand_instances", "rain_tpu_torch/csrc/expand.cu",
@@ -398,7 +415,7 @@ KERNELS = (
 def bound(nbytes, ops):
     """(the least time in ms for these bytes and f32 operations on the
     H100, what bounds it)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_NOFMA_OPS_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return max(t_bytes, t_ops) * 1e3, \
         "operations" if t_ops > t_bytes else "bytes"
 
@@ -408,9 +425,12 @@ def step_kernels(seen, width, height, max_instances):
     on_stage hook). Returns ({kernel: (its wrapper's call, its plain
     version's call, (the library call's name, the call) or None, bytes,
     f32 operations)}, the step's work): the bytes count each input read
-    once and each output written once, the operations the pairs this
-    step's data makes the compositors evaluate and composite; instances
-    past the tier are dropped, so min(instances, M) columns count."""
+    once and each output written once, the compositors' operations the
+    pairs that this step's data composites, each evaluated and composited
+    once (a pair that is evaluated and composites nothing is work that a
+    cull could skip, so it is no floor; the evaluated pairs are kept in
+    the work for the record); instances past the tier are dropped, so
+    min(instances, M) columns count."""
     (d_args, d_kw), b3_args = kernel_inputs(seen, width, height,
                                             max_instances)
     n, m = d_args[0].shape[1], max_instances
@@ -428,11 +448,11 @@ def step_kernels(seen, width, height, max_instances):
         "n": n, "m": m, "total": total, "n_tiles": n_tiles,
         "b1_bytes": (10 * 4 + 4 + 8 + 4 + 4) * n + (10 * 4 + 8) * m,
         "b3_pairs_evaluated": n_eval, "pairs_composited": n_comp,
-        "b3_ops": OPS_EVAL * n_eval + OPS_COMP * n_comp,
+        "b3_ops": (OPS_EVAL + OPS_COMP) * n_comp,
         "b3_bytes": 10 * 4 * live + 2 * 4 * n_tiles +
         n_tiles * 256 * 8 * 4,
         "b4_pairs_evaluated": b4_eval,
-        "b4_ops": OPS_EVAL * b4_eval + OPS_BWD_COMP * n_comp,
+        "b4_ops": (OPS_EVAL + OPS_BWD_COMP) * n_comp,
         "b4_bytes": 2 * rows * 4 * live + 4 * n_tiles +
         2 * n_tiles * 256 * 8 * 4,
         "b2_bytes": rows * 4 * live + (8 + 4) * n + rows * 4 * n,
@@ -540,84 +560,6 @@ def stage_split(run, stages, reps=10):
     return {s: float(np.median(v)) for s, v in split.items()}
 
 
-def bitwise_equal(a, b):
-    """Equal bit for bit, signed zeros included (torch.equal takes -0.0
-    for +0.0)."""
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
-
-
-def compare_tiles(got, want, what):
-    """Kernel vs plain compositor output, bit for bit in all 8 channels:
-    the kernel does the plain loop's operations in its order (built with
-    -fmad=false) and skips only pairs that the loop skips. Returns the max
-    abs error (0)."""
-    if not bitwise_equal(got, want):
-        n_px = got[..., 0].numel()
-        flips = int((got[..., tile_render.CH_NCONTRIB] !=
-                     want[..., tile_render.CH_NCONTRIB]).sum())
-        raise AssertionError(
-            f"{what}: B3 differs from its plain version (max abs "
-            f"{float((got - want).abs().max()):.3g}, n_contrib at {flips} "
-            f"of {n_px} pixels)")
-    print(f"{what}: B3 bitwise equal to its plain version")
-    return float((got - want).abs().max())
-
-
-@torch.no_grad()
-def compare_forward(seen, width, height, what, max_instances=None,
-                    band=None):
-    """B1 and B3 of one frame or step (or band, see kernel_inputs) against
-    their plain versions on the inputs it gave them, bit for bit (B1 in
-    columns and keys). Returns their max abs errors. Without autograd: a
-    training step's pack carries its graph, and the plain loops would
-    record theirs."""
-    b1_args, b3_args = kernel_inputs(seen, width, height, max_instances,
-                                     band)
-    cols_k, keys_k = seen["expand_B1"]
-    cols_p, keys_p = expand_ops.expand_instances_torch(*b1_args[0],
-                                                       **b1_args[1])
-    if not (bitwise_equal(cols_k, cols_p) and torch.equal(keys_k, keys_p)):
-        raise AssertionError(f"B1 {what} differs from "
-                             f"expand_instances_torch")
-    print(f"B1 {what}, M={b1_args[1]['max_instances']}: bitwise equal to "
-          f"its plain version")
-    b1_err = float((cols_k - cols_p).abs().max())
-    del cols_p, keys_p
-    return b1_err, compare_tiles(
-        seen["composite_B3"], tile_render.composite_forward_torch(*b3_args),
-        f"B3 {what}")
-
-
-@torch.no_grad()
-def compare_backward(seen, what):
-    """B2 and B4 of one training step against their plain versions on the
-    inputs the step gave them. B2 sums each segment from 0.0 in the plain
-    version's order, so the two are equal bit for bit; the gradients of a
-    loss averaged over millions of pixels are small, so no absolute bar
-    would do (each row's max |value| is printed). B4 follows the plain
-    version's arithmetic and pixel-sum order, so the two are equal bit for
-    bit in every row, zero rows and columns included. Returns (B2's,
-    B4's) max abs error and B2's max |value| per row."""
-    d_rank, exc, tiles, d_depth = seen["reduce_B2"]
-    want = expand_ops.reduce_instances_torch(d_rank, exc, tiles)
-    scale = want.abs().amax(dim=1).tolist()
-    print(f"B2 {what}: max |value| per row {[f'{v:.3g}' for v in scale]}")
-    if not torch.equal(d_depth, want):
-        raise AssertionError(f"B2 {what} differs from its plain version")
-    b2_err = float((d_depth - want).abs().max())
-    args, d_pack = seen["composite_bwd_B4"]
-    want = tile_render.composite_backward_torch(*args)
-    err = (d_pack - want).abs()
-    if not bitwise_equal(d_pack, want):
-        raise AssertionError(
-            f"B4 {what} differs from its plain version: max abs error per "
-            f"row {[f'{float(e):.3g}' for e in err.amax(dim=1)]}")
-    print(f"B2 {what}: bitwise equal; B4 {what}: bitwise equal in all "
-          f"{d_pack.shape[0]} rows")
-    return b2_err, float(err.max()), scale
-
-
 def occupancy(lib):
     """Resident blocks per SM of a kernel (its C entry
     rain_{expand,reduce}_occupancy or
@@ -639,6 +581,13 @@ def tests_module(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+# B1-B4 against their plain versions, shared with the card tests
+STEP = tests_module("torch_step_kernels")
+bitwise_equal, compare_tiles = STEP.bitwise_equal, STEP.compare_tiles
+kernel_inputs = STEP.kernel_inputs
+compare_forward, compare_backward = STEP.compare_forward, STEP.compare_backward
 
 
 def b1_edge_cases():
@@ -1899,7 +1848,7 @@ def sharded_rank(rank, dev, parent_sizes, ref_dir, floors, check, timed):
         layout = sharding.band_layout(WIDTH, HEIGHT, world)
         toff = sharding.band_offset(layout, rank)
         what = f"band {rank} of {world} (toff {toff})"
-        b1, b3 = compare_forward(seen, WIDTH, HEIGHT, what,
+        b1, b3 = compare_forward(seen, WIDTH, HEIGHT, what, MAX_INSTANCES,
                                  band=(toff, layout.n_rows))
         b2, b4, _ = compare_backward(seen, what)
         rec["toff"] = toff
@@ -2154,6 +2103,188 @@ def sharded_phase(arrays, gt0, aux0, first_step, kernels,
     return rec
 
 
+# --- 12. the end-state scale ---------------------------------------------
+# the step-0 instance counts of bench.py's tiers at its camera from the TPU
+# run BENCH_r05.json (its 262k count, 612,602, is phase 3's pose 2's);
+# printed beside the port's, which must equal its CPU path's
+BENCH_R05_INSTANCES = {"1m": 1_644_592, "4m": 5_436_763}
+SCALE_TIERS = tuple(BENCH_R05_INSTANCES)
+SCALE_ITERS = 10
+GROWTH_ITERS = 1350
+GROWTH_LOG_EVERY = 50
+# docs/runs/sustained_growth_r5.log: alive at 1000 (held within 10 %), the
+# capacity growths and the instance tiers that the cut run must cross
+GROWTH_ALIVE = {1000: 496_434}
+GROWTH_CAPACITIES = ((262_144, 524_288), (524_288, 1_048_576),
+                     (1_048_576, 2_097_152))
+GROWTH_TIERS = (1_572_864, 2_097_152)
+
+
+def scale_tier(name, trace_dir):
+    """Phase 12's tier ``name`` of scripts/probe_scale.py at full size:
+    run_tier's step 0 (its on_stage hook kept) and SCALE_ITERS more steps,
+    its launch counters set to 0 just before and read just after, then 3
+    steps under torch.profiler; B1-B4 of step 0 against their plain
+    versions bit for bit, then timed beside their bounds. Returns the
+    tier's record."""
+    n, m, _ = probe_scale.TIERS[name]
+    seen = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    rec = probe_scale.run_tier(name, device=DEV, iters=SCALE_ITERS,
+                               trace=trace_dir, on_stage=stage_hook(seen))
+    launches = read_counts()
+    want = 1 + SCALE_ITERS + probe_scale.TRACE_STEPS
+    if launches != {k: want for k in counters()}:
+        raise AssertionError(f"{name}: launches {launches}, expected {want} "
+                             f"of each kernel")
+    cpu = probe_scale.preprocess_instances(probe_scale.build_tier_state(
+        n, probe_scale.TIERS[name][2], device="cpu"))
+    if rec["instances"] != cpu or rec["overflow"]:
+        raise AssertionError(
+            f"{name}: step 0 has {rec['instances']} instances (overflow "
+            f"{rec['overflow']}) at the tier {m}; the CPU path counts {cpu}")
+    rec["cpu_instances"] = cpu
+    rec["bench_r05_instances"] = BENCH_R05_INSTANCES[name]
+    if tuple(seen) != TRAIN_STAGES:
+        raise AssertionError(f"{name}: training stages seen {tuple(seen)}")
+    what = f"{name} tier step 0 ({n} Gaussians)"
+    errs = dict(zip(("expand_instances", "composite_forward"),
+                    compare_forward(seen, WIDTH, HEIGHT, what, m)))
+    errs["reduce_instances"], errs["composite_backward"], _ = \
+        compare_backward(seen, what)
+    # without autograd: the pack carries the step's graph, and the plain
+    # compositor that counts the pairs would record its own
+    with torch.no_grad():
+        kernels, work = step_kernels(seen, WIDTH, HEIGHT, m)
+        rows = {}
+        for k, (call, _, _, nbytes, ops) in kernels.items():
+            bound_ms, bound_by = bound(nbytes, ops)
+            rows[k] = {"ms": device_ms(call), "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": errs[k]}
+    del seen, kernels
+    rec.update(launches=launches, kernels=rows, work=work)
+    print(f"{what}: {rec['instances']} instances at the tier {m}, as on the "
+          f"CPU path (BENCH_r05.json's TPU run: "
+          f"{BENCH_R05_INSTANCES[name]}); B1-B4 bit for bit; kernels (ms, "
+          f"bound ms) " +
+          json.dumps({k: [r["ms"], r["bound_ms"]] for k, r in rows.items()}))
+    print(f"{what}: first step {rec['first_step_ms']:.1f} ms, host median "
+          f"of {SCALE_ITERS} steps {rec['step_ms_median']:.2f} ms, device "
+          f"busy {rec['device_busy_ms']:.2f} ms per step, "
+          f"{rec['device_ops']:.0f} device operations, peak "
+          f"{rec['peak_mib']:.0f} MiB")
+    return rec
+
+
+def growth_run(tmp):
+    """scripts/sustained_growth.py cut to GROWTH_ITERS iterations, its
+    loop recorded (tests/torch_trainer_trace.py) and its launch counters
+    set to 0 just before and read just after: each kernel once per
+    dispatched step. Then the synchronising calls of one train_step at
+    the run's end state. Returns the record."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t = time.perf_counter()
+    with recorded() as trace:
+        tr = sustained_growth.main(["--iterations", str(GROWTH_ITERS),
+                                    "--out", str(tmp)])
+    wall_s = time.perf_counter() - t
+    launches = read_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    a = loop_summary(trace)
+    steps, kept = a["steps"], a["kept"]
+    if launches != {k: len(steps) for k in counters()}:
+        raise AssertionError(f"growth run: launches {launches} for "
+                             f"{len(steps)} dispatched steps")
+    if len(kept) != GROWTH_ITERS or any(s[4] for s in kept) or not all(
+            math.isfinite(s[3]) for s in steps):
+        raise AssertionError("growth run: a kept step overflowed, or a "
+                             "loss is not finite")
+    alive = {i: kept[i - 1][2]
+             for i in range(GROWTH_LOG_EVERY, GROWTH_ITERS + 1,
+                            GROWTH_LOG_EVERY)}
+    print(f"growth run: alive every {GROWTH_LOG_EVERY} iterations "
+          f"{json.dumps(alive)}")
+    grown = [(g["from"], g["to"]) for g in a["growths"]]
+    tiers = [r["tier_after"] for r in a["retries"]]
+    print(f"growth run: capacity growths {grown}, instance tiers {tiers} "
+          f"at iterations {[r['iteration'] for r in a['retries']]}")
+    if any(g not in grown for g in GROWTH_CAPACITIES) or \
+            any(t not in tiers for t in GROWTH_TIERS):
+        raise AssertionError(f"growth run: expected the capacity growths "
+                             f"{GROWTH_CAPACITIES} and the tiers "
+                             f"{GROWTH_TIERS}")
+    for i, want in GROWTH_ALIVE.items():
+        if abs(alive[i] - want) > 0.1 * want:
+            raise AssertionError(f"growth run: alive {alive[i]} at {i}, "
+                                 f"more than 10 % from the log's {want}")
+    cam = tr.scene.train_cameras[0]
+    cam_in, gt = tr._camera_bundle(cam)
+    syncs = count_syncs(lambda: step.train_step(
+        tr.state, tr.opt_state, cam_in, gt, tr.background, tr.low_pass,
+        XYZ_LR, width=cam.width, height=cam.height, sh_degree=SH_DEGREE,
+        max_instances=tr.max_instances, opt_cfg_leaves=OPT_LEAVES))
+    print(f"growth run: synchronising calls per train_step at "
+          f"{tr.state.n_alive} alive: {syncs[0]} {syncs[1]}")
+    if syncs[0]:
+        raise AssertionError(f"train_step waits for the card: {syncs}")
+    iter_ms = a["iteration_ms"]
+    spans = {f"{lo}-{hi}": [iter_ms[i] for i in range(lo, hi)
+                            if i in iter_ms]
+             for lo, hi in ((2, 500), (500, 1000), (1000, GROWTH_ITERS))}
+    rec = {"wall_s": wall_s, "launches": launches,
+           "steps_dispatched": len(steps), "alive": alive,
+           "growths": a["growths"], "retries": a["retries"],
+           "rounds": a["rounds"], "final_n_alive": tr.state.n_alive,
+           "final_capacity": tr.state.capacity,
+           "final_tier": tr.max_instances, "peak_mib": peak_mib,
+           "syncs_per_step": syncs[0], "sync_sites": syncs[1],
+           "host_ms_per_iteration": {k: quartiles(v)
+                                     for k, v in spans.items() if v}}
+    del tr
+    return rec
+
+
+def scale_phase(kernels):
+    """Phase 12: bench.py's 1m and 4m tiers at step 0, the KNN at
+    knn_deviation's 1,572,864 points, and the sustained-growth run cut to
+    GROWTH_ITERS. Adds each kernel's launches and, per tier, its ms and
+    bound ms to ``kernels``. Returns the phase's record."""
+    rec = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        for name in SCALE_TIERS:
+            rec[name] = scale_tier(name, tmp / "trace")
+            torch.cuda.empty_cache()
+        knn = knn_deviation.run(knn_deviation.N_POINTS, device=DEV)
+        if knn["rows_below_bound"]:
+            raise AssertionError(f"the window KNN falls below the exact "
+                                 f"one on {knn['rows_below_bound']} rows")
+        rec["knn"] = knn
+        torch.cuda.empty_cache()
+        rec["growth"] = growth_run(tmp / "growth")
+    for k in kernels:
+        k["launches_scale"] = {
+            **{t: rec[t]["launches"][k["name"]] for t in SCALE_TIERS},
+            "growth": rec["growth"]["launches"][k["name"]]}
+        k["scale_ms_bound_ms"] = {
+            t: [rec[t]["kernels"][k["name"]]["ms"],
+                rec[t]["kernels"][k["name"]]["bound_ms"]]
+            for t in SCALE_TIERS}
+    summary = {t: {f: rec[t][f] for f in (
+        "instances", "bench_r05_instances", "first_step_ms",
+        "step_ms_median", "device_busy_ms", "device_ops", "peak_mib")}
+        for t in SCALE_TIERS}
+    summary["knn"] = {f: knn[f] for f in ("exact_s", "morton_s", "rel_mean",
+                                          "rel_max", "rows_below_bound")}
+    summary["growth"] = {f: rec["growth"][f] for f in (
+        "wall_s", "final_n_alive", "final_capacity", "final_tier",
+        "peak_mib", "syncs_per_step")}
+    print("scale: " + json.dumps(summary))
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2198,7 +2329,8 @@ def main(out: Path | None = None):
         raise AssertionError("load_ply_snapshot did not load onto the card")
     cams = [pose(k).render_inputs() for k in range(N_POSES)]
     first, seen = render_frame(state, cams[0], WIDTH, HEIGHT)
-    b1_err, b3_err = compare_forward(seen, WIDTH, HEIGHT, f"{WIDTH}x{HEIGHT}")
+    b1_err, b3_err = compare_forward(seen, WIDTH, HEIGHT, f"{WIDTH}x{HEIGHT}",
+                                     MAX_INSTANCES)
     del seen
 
     crop_arrays = {k: v[:20_000] for k, v in arrays.items()}
@@ -2207,7 +2339,7 @@ def main(out: Path | None = None):
     crop_out, crop = render_frame(crop_state, crop_cam, 256, 256)
     b3_err = max(b3_err, compare_tiles(
         crop["composite_B3"], tile_render.composite_forward_torch(
-            *kernel_inputs(crop, 256, 256)[1]),
+            *kernel_inputs(crop, 256, 256, MAX_INSTANCES)[1]),
         "B3 256x256, 20k Gaussians"))
 
     small = {k: v[:3000] for k, v in arrays.items()}
@@ -2426,6 +2558,9 @@ def main(out: Path | None = None):
     del state0, opt0
     sharded_rec = sharded_phase(arrays, gts[0], auxes[0], first_step,
                                 kernels)
+    # --- 12. the end-state scale --------------------------------------------
+    del arrays, gts, auxes, first_step
+    scale_rec = scale_phase(kernels)
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
@@ -2472,6 +2607,7 @@ def main(out: Path | None = None):
         "production": prod_rec,
         "ab": ab_rec,
         "sharded": sharded_rec,
+        "scale": scale_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:

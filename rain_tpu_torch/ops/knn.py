@@ -7,11 +7,20 @@ Gaussian by its local point density. rain_tpu computes it in plain XLA
 (matmuls, top-k and sorts, no Pallas), so this port is plain PyTorch too:
 
 - ``mean_dist3_matmul``: the EXACT all-pairs search. Candidates are picked
-  per row from the matmul form |a|² + |b|² − 2a·b (one f32 ``matmul``,
-  TF32 off as the package sets it), then the four candidates are
-  re-evaluated with the direct difference formula, whose top-3 mean is the
-  result, so the values are the direct formula's. The default up to
-  ``exact_limit`` points.
+  per row from the matmul form |a|² + |b|² − 2a·b, computed in f64 (one
+  ``matmul``) and ranked in f32, then the four candidates are
+  re-evaluated with the direct difference formula in f32, whose top-3
+  mean is the result, so the values are the direct formula's. The
+  default up to ``exact_limit`` points. rain_tpu picks the candidates in
+  f32, where the form's cancellation (|p|² in the hundreds against
+  squared neighbour distances of 1e-4) can rank a true neighbour fifth:
+  on the H100, 12 rows of the 1,572,864-point cloud of
+  scripts/knn_deviation.py came out above the window search's upper
+  bound that way, and on the CPU 1 row of the 262,144 means of bench.py's
+  262k scene.
+  The port's candidates hold the true three nearest wherever rain_tpu's
+  do, so the values differ only on the rows where rain_tpu's search
+  misses a neighbour.
 - ``mean_dist3``: the approximate O(N·W) windowed search along three
   Morton curves (the 30-bit interleave of simple_knn.cu:34-59), the
   elementwise min of the per-curve top-3 means: an upper bound.
@@ -27,9 +36,9 @@ from __future__ import annotations
 
 import torch
 
-# the largest [rows, N] f32 tile of the exact search (1 GiB): its row block
-# is 2^28 // N rows, at most MAX_ROW_BLOCK
-TILE_ELEMENTS = 1 << 28
+# the largest [rows, N] f64 tile of the exact search (1 GiB): its row block
+# is 2^27 // N rows, at most MAX_ROW_BLOCK
+TILE_ELEMENTS = 1 << 27
 MAX_ROW_BLOCK = 1024
 
 
@@ -141,29 +150,32 @@ def mean_dist3_matmul(points: torch.Tensor,
     """Exact mean 3-NN squared distance, a [row_block, N] tile at a time.
 
     Phase 1 picks each row's 4 candidates by d²(i,j) = (|p_i|² + |p_j|²) −
-    2·p_i·p_j with the cross term as one f32 matmul (cancellation makes
-    these values approximate); phase 2 re-evaluates the candidates with the
-    direct difference formula (full f32, no cancellation) and keeps the
-    top-3 mean. rain_tpu pads the columns to blocks of 65,536 and merges a
-    running top 4; here each tile holds the whole row, so the row block is
-    chosen for bounded memory: 2^28 // N rows (at most 1024), a 1 GiB f32
-    tile, and a peak of about three tiles. O(N²) operations: a one-time
-    init cost.
+    2·p_i·p_j in f64, the cross term as one matmul, then rounded to f32
+    (the f64 rounding, ~1e-16 of |p|², ranks the candidates as the exact
+    distances do but for ties at f32's resolution); phase 2 re-evaluates
+    the candidates with the direct difference formula in f32 and keeps the
+    top-3 mean. rain_tpu pads the
+    columns to blocks of 65,536, merges a running top 4 and picks in f32;
+    here each tile holds the whole row, so the row block is chosen for
+    bounded memory: 2^27 // N rows (at most 1024), a 1 GiB f64 tile, and a
+    peak of about two tiles. O(N²) operations: a one-time init cost.
     """
     n = points.shape[0]
     dev = points.device
     if row_block is None:
         row_block = max(1, min(MAX_ROW_BLOCK, TILE_ELEMENTS // max(n, 1)))
-    n2 = _sq_dist(points, torch.zeros_like(points))
+    p64 = points.double()
+    n2 = (p64 * p64).sum(dim=1)
     out = torch.empty((n,), dtype=points.dtype, device=dev)
     for r0 in range(0, n, row_block):
         p = points[r0:r0 + row_block]
         rb = p.shape[0]
         rows = torch.arange(r0, r0 + rb, device=dev)
         d2 = n2[r0:r0 + rb, None] + n2[None, :]
-        # (|a|² + |b|²) − 2g: the doubling is exact, so one add rounds as
-        # rain_tpu's subtraction does
-        d2.add_(torch.matmul(p, points.T), alpha=-2.0)
+        d2.add_(torch.matmul(p64[r0:r0 + rb], p64.T), alpha=-2.0)
+        # the cancellation is over: in f32 the ranking keeps its resolution
+        # and the top 4 take half the time
+        d2 = d2.float()
         d2[torch.arange(rb, device=dev), rows] = float("inf")
         _, cand = _smallest(d2, 4)
         del d2

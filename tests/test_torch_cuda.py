@@ -16,9 +16,11 @@ from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops import losses as loss_ops
+from rain_tpu_torch.scripts import knn_deviation, probe_scale
 from rain_tpu_torch.train import step
 from torch_expand_cases import CASES, expand_case
 from torch_reduce_cases import CASES as REDUCE_CASES
+from torch_step_kernels import compare_backward, compare_forward
 from torch_reduce_cases import reduce_case
 
 torch.set_num_threads(1)
@@ -506,3 +508,32 @@ def test_sharded_step_on_shared_card_matches_train_step(cuda):
         np.testing.assert_array_equal(got["stats"][name],
                                       want["stats"][name])
     assert cases.digest(runs[0]) == cases.digest(runs[1])
+
+
+def test_1m_tier_step0_matches_plain_versions_and_cpu_count(cuda):
+    """bench.py's 1m tier (scripts/probe_scale.py) at step 0 and the tier
+    2^21: no overflow, B1-B4 bit for bit against their plain versions
+    (tests/torch_step_kernels.py, as chip_smoke.py holds them), and the
+    instances the CPU path counts on the same state (which equal
+    rain_tpu's per Gaussian, tests/test_torch_scale_tools.py)."""
+    n, m, log_scale = probe_scale.TIERS["1m"]
+    ts = probe_scale.build_tier_state(n, log_scale, device=cuda)
+    seen = {}
+    _, _, aux = probe_scale.train_once(ts, ts.state, ts.opt, m,
+                                       on_stage=seen.__setitem__)
+    assert not bool(aux.instance_overflow)
+    compare_forward(seen, probe_scale.WIDTH, probe_scale.HEIGHT, "1m", m)
+    compare_backward(seen, "1m")
+    assert int(aux.num_instances) == probe_scale.preprocess_instances(
+        probe_scale.build_tier_state(n, log_scale, device="cpu"))
+
+
+def test_window_knn_above_2_20_points_on_card_matches_cpu(cuda):
+    """mean_dist3_auto past its exact limit (2^20 + 4096 points of
+    knn_deviation's cloud) takes the Morton-window search; on the card it
+    equals the CPU's window search at rtol 1e-6 (the same candidates and
+    operations)."""
+    pts = torch.from_numpy(knn_deviation.cloud((1 << 20) + 4096))
+    got = knn_ops.mean_dist3_auto(pts.to(cuda)).cpu()
+    torch.testing.assert_close(got, knn_ops.mean_dist3(pts), rtol=1e-6,
+                               atol=0.0)

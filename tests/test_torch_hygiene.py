@@ -5,7 +5,10 @@
   helpers of tests/ that chip_smoke.py loads imports jax or rain_tpu.
 - Importing the port leaves jax and rain_tpu out of sys.modules.
 - An entry point called without ``device`` runs on the CUDA card; with no
-  card it raises RuntimeError instead of carrying on on the CPU.
+  card it raises RuntimeError instead of carrying on on the CPU. So does
+  each script's ``main`` called without ``--device``.
+- No module of ``rain_tpu_torch/scripts`` reads the environment: every
+  knob of the tools they port is a flag.
 """
 
 import ast
@@ -24,7 +27,9 @@ from rain_tpu_torch.data.dataset import SceneData
 from rain_tpu_torch.eval import lpips
 from rain_tpu_torch.model import adam
 from rain_tpu_torch.model import gaussians as gmod
-from rain_tpu_torch.scripts import production_30k
+from rain_tpu_torch.scripts import (composite_micro, knn_deviation,
+                                    probe_scale, production_30k,
+                                    sustained_growth, trainer_sustained)
 from rain_tpu_torch.train import checkpoint as ckpt
 from rain_tpu_torch.train.trainer import Trainer
 
@@ -39,7 +44,8 @@ SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
                  ROOT / "tests" / "torch_reduce_cases.py",
                  ROOT / "tests" / "torch_trainer_trace.py",
                  ROOT / "tests" / "torch_colmap_scene.py",
-                 ROOT / "tests" / "torch_sharding_cases.py"]
+                 ROOT / "tests" / "torch_sharding_cases.py",
+                 ROOT / "tests" / "torch_step_kernels.py"]
 # modules the walk must find, one of each package
 WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",
@@ -49,7 +55,14 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.scripts.production_30k", "rain_tpu_torch.entry",
           "rain_tpu_torch.ops.sort", "rain_tpu_torch.parallel.sharding",
           "rain_tpu_torch.parallel.distributed",
-          "rain_tpu_torch.parallel.launch", "rain_tpu_torch.parallel.scaling")
+          "rain_tpu_torch.parallel.launch", "rain_tpu_torch.parallel.scaling",
+          "rain_tpu_torch.scripts.probe_scale",
+          "rain_tpu_torch.scripts.sustained_growth",
+          "rain_tpu_torch.scripts.knn_deviation",
+          "rain_tpu_torch.scripts.trainer_sustained",
+          "rain_tpu_torch.scripts.composite_micro",
+          "rain_tpu_torch.scripts.summarize_run")
+SCRIPTS = sorted((ROOT / "rain_tpu_torch" / "scripts").glob("*.py"))
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -89,6 +102,21 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert set(WALKED) <= set(PORT_MODULES)
+
+
+@pytest.mark.parametrize("path", SCRIPTS, ids=lambda p: p.name)
+def test_script_reads_no_environment(path):
+    """No ``os.environ``, ``os.getenv`` or ``os.putenv`` in a script."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        name = node.attr if isinstance(node, ast.Attribute) else \
+            node.id if isinstance(node, ast.Name) else None
+        assert name not in ("environ", "getenv", "putenv", "environb"), \
+            f"{path.name}:{node.lineno} reads the environment ({name})"
+        if isinstance(node, ast.ImportFrom) and node.module == "os":
+            bad = [a.name for a in node.names if a.name in (
+                "environ", "getenv", "environb")]
+            assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
 def _raw(n=4):
@@ -142,6 +170,17 @@ def _entry_points(tmp_path):
              "--init_n", "100", "--iterations", "1", "--test_iterations",
              "--save_iterations", "--checkpoint_iterations"]
         ).trainer.state.params.xyz,
+        "probe_scale.main": lambda: probe_scale.main(
+            ["1m", "--iters", "1"])[0]["device"],
+        "sustained_growth.main": lambda: sustained_growth.main(
+            ["--iterations", "2", "--out", str(tmp_path / "g")]
+        ).state.params.xyz,
+        "knn_deviation.main": lambda: knn_deviation.main(["500"])[0][
+            "device"],
+        "trainer_sustained.main": lambda: trainer_sustained.main(
+            ["--iterations", "2", "--out", str(tmp_path / "s")])["device"],
+        "composite_micro.main": lambda: composite_micro.main(
+            ["--reps", "1"])["device"],
     }
 
 
@@ -149,11 +188,25 @@ def _entry_points(tmp_path):
                                   "load_ply_snapshot", "render_inputs",
                                   "create_from_pcd", "load_checkpoint",
                                   "Trainer", "make_lpips", "entry",
-                                  "production_30k.main"])
-def test_entry_point_defaults_to_cuda(name, tmp_path):
+                                  "production_30k.main", "probe_scale.main",
+                                  "sustained_growth.main",
+                                  "knn_deviation.main",
+                                  "trainer_sustained.main",
+                                  "composite_micro.main"])
+def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
+    # the scripts' scenes cut to 500 Gaussians at 64x48, tier 4096
+    monkeypatch.setattr(probe_scale, "TIERS", {"1m": (500, 4096, -5.2)})
+    for mod in (probe_scale, sustained_growth):
+        monkeypatch.setattr(mod, "WIDTH", 64)
+        monkeypatch.setattr(mod, "HEIGHT", 48)
+    for mod in (sustained_growth, composite_micro):
+        monkeypatch.setattr(mod, "N", 500)
+        monkeypatch.setattr(mod, "MAX_INSTANCES", 4096)
     call = _entry_points(tmp_path)[name]
     if torch.cuda.is_available():
-        assert call().device.type == "cuda"
+        out = call()    # a tensor, or the device a script's record names
+        assert (out if isinstance(out, str) else out.device.type
+                ).startswith("cuda")
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -115,3 +115,18 @@ def test_auto_and_upper_bound(cloud):
     approx = tknn.mean_dist3_auto(pts, exact_limit=len(pts) - 1)
     assert torch.equal(approx, tknn.mean_dist3(pts))
     assert bool((approx >= exact).all())
+
+
+def test_exact_search_far_from_the_origin_is_exact():
+    """A cloud 300 units from the origin (|p|² ~ 2.7e5 against squared
+    neighbour distances of ~1e-4): the matmul form in f32 ranks the
+    neighbours by its rounding, so rain_tpu's search misses true
+    neighbours on most rows; the port picks its candidates in f64 and
+    equals the O(N²) oracle bit for bit."""
+    rng = np.random.default_rng(5)
+    pts = (300.0 + rng.normal(0, 0.05, (600, 3))).astype(np.float32)
+    oracle = tknn.mean_dist3_exact(torch.from_numpy(pts)).numpy()
+    got = tknn.mean_dist3_matmul(torch.from_numpy(pts)).numpy()
+    np.testing.assert_array_equal(got, oracle)
+    j = np.asarray(jknn.mean_dist3_matmul(jnp.asarray(pts)))
+    assert (j > oracle).mean() > 0.1    # rain_tpu's misses
