@@ -16,16 +16,31 @@ within 1e-5, params within 1e-5 where the gradient is above its rounding's
 level and 2·lr below it, statistics exact), B1-B4 bit for bit on every
 band, every kernel launched once per rank, a D = 2 rerun with the same
 bits; the sharded Trainer (devices=2) against devices=1; and
-entry.dryrun_multichip(4). It prints each rank's ms per step beside the
-single-device step's (host clock, each ending in a synchronize), the
-cards' names and power limits and, last, {"ok": true, "device": {...}}.
-Any failed check, or fewer than four cards, exits non-zero.
+entry.dryrun_multichip(4). Then the train CLI as a user starts a sharded
+run on four cards: chip_smoke.py phase 8's COLMAP scene (cli_scene: 10
+poses at 1297x840 of the 262k proxy) and phase 8's argv (5 train views,
+40 iterations, a report and a PLY at 40, a checkpoint at 20) as four
+processes, rank r on card r (--devices 4, --dist_init
+tcp://127.0.0.1:<free port>, --world_size 4, --rank r), once over NCCL,
+the card's default, and once with --dist_backend gloo
+(chip_smoke.sharded_cli: every rank exits 0, rank 0 alone writes the
+output folder, every kernel launched on every rank, B4 and B2 once per
+dispatched step, B1 and B3 once more per report frame). The NCCL run is
+held against the gloo run (chip_smoke.hold_cli): cfg_args.json equal (the
+backend is not part of it), cameras.json and input.ply byte for byte, the
+same capacity and n_alive, the PLY's params within 2e-3 in all but 1 in
+10,000 rows a leaf (those rows counted and printed), the final test PSNR
+within 0.05 dB. It prints each rank's ms per step beside the
+single-device step's (host clock, each ending in a synchronize), each CLI
+run's wall time and ms per iteration per rank, the cards' names and power
+limits and, last, {"ok": true, "device": {...}}. Any failed check, or
+fewer than four cards, exits non-zero.
 """
 
 import argparse
 import json
-import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,10 +60,7 @@ def main(out: Path | None = None):
     if torch.cuda.device_count() < CARDS:
         sys.exit(f"chip_multicard: needs {CARDS} CUDA cards, "
                  f"{torch.cuda.device_count()} visible")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = smoke.nvidia_smi()
     print(smi)
     _build.build_all()
     arrays = smoke.garden_proxy_state_arrays()
@@ -65,6 +77,21 @@ def main(out: Path | None = None):
     kernels = [{"name": name} for name, _, _ in smoke.KERNELS]
     record = smoke.sharded_phase(arrays, gt, aux, smoke.snapshot(s, o),
                                  kernels, share_device=False)
+    # the train CLI over NCCL, one process per card, against the same argv
+    # over gloo on the same cards
+    del s, o, aux, gt
+    with tempfile.TemporaryDirectory(dir=smoke.ROOT) as tmp:
+        tmp = Path(tmp)
+        smoke.cli_scene(tmp / "scene", arrays)
+        torch.cuda.empty_cache()
+        cli = {b: smoke.sharded_cli(tmp / "scene", tmp / b, CARDS, b, False,
+                                    kernels) for b in ("nccl", "gloo")}
+        cli["nccl_against_gloo"] = smoke.hold_cli(
+            tmp / "nccl", tmp / "gloo",
+            f"train CLI over nccl against gloo, {CARDS} ranks on {CARDS} "
+            f"cards", cli["nccl"]["ranks"][0]["capacity"],
+            cli["gloo"]["ranks"][0]["capacity"])
+    record["cli"] = cli
     record.update(nvidia_smi=smi, kernels=kernels,
                   wall_s=time.perf_counter() - t_start)
     if out is not None:

@@ -8,9 +8,10 @@ noisy_sfm / reprojection-filtered / cluster / paper_random / "ours"
 camera-cube random / Blender random).
 
 Images are loaded into float32 [3, H, W] in [0, 1] with the same bits as
-rain_tpu's PIL path: PNG by ``images`` (numpy and zlib), JPEG and resizing
-by PIL, which then must import. Blender RGBA is composited over the
-background (dataset_readers.py:254-258). The loaders return numpy, and
+rain_tpu's PIL path: 8-bit non-interlaced PNG by ``images`` (numpy and
+zlib); other PNGs, JPEG and resizing by PIL, which then must import.
+Blender RGBA is composited over the background
+(dataset_readers.py:254-258). The loaders return numpy, and
 their ``rng`` draws are rain_tpu's calls in rain_tpu's order, so the init
 points are the same bit for bit.
 """

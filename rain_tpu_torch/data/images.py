@@ -12,11 +12,14 @@ for PNG, the format the loaders, the render CLI and the metrics CLI use:
 - ``save_png(path, arr)`` writes uint8 [H, W], [H, W, 3] or [H, W, 4].
 
 The decoder reads 8-bit, non-interlaced PNGs of the five colour types
-with all five scanline filters. JPEG and other formats, and resizing
-(``PIL.Image.resize`` with PIL's own default filter, as
-rain_tpu/data/dataset.py:42 calls it), go through PIL; without PIL they
-raise RuntimeError naming the file. No other resampler stands in for
-PIL's: it would round differently and give another image.
+with all five scanline filters (``numpy_reads`` tells them by their
+header). Every other PNG (16-bit, 1/2/4-bit, Adam7-interlaced), JPEG and
+other formats, and resizing (``PIL.Image.resize`` with PIL's own default
+filter, as rain_tpu/data/dataset.py:42 calls it) go through PIL, so their
+arrays are PIL's by construction, PIL's own modes included (``I;16`` for
+16-bit grey, ``1`` for 1-bit grey, the high bytes of 16-bit RGB); without
+PIL they raise RuntimeError naming the file. Neither PIL's modes nor its
+resampler are imitated: a second decoder would round differently.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ def _pil(path, what: str):
         from PIL import Image
     except ImportError:
         raise RuntimeError(f"{path}: {what} needs PIL, which does not "
-                           f"import here; only 8-bit PNG is read without "
-                           f"it") from None
+                           f"import here; only 8-bit non-interlaced PNG is "
+                           f"read without it") from None
     return Image
 
 
@@ -76,12 +79,38 @@ def _header(data: bytes, path):
     return struct.unpack_from(">IIBBBBB", data, 16)
 
 
+def _png_header(path):
+    with open(path, "rb") as f:
+        return _header(f.read(33), path)
+
+
+def numpy_reads(header) -> bool:
+    """Whether ``decode_png`` reads the PNG of this ``_header``: 8-bit,
+    non-interlaced, one of the five colour types."""
+    _, _, depth, ctype, _, _, interlace = header
+    return depth == 8 and ctype in CHANNELS and interlace == 0
+
+
+def _needs_pil(path, resize_to=None) -> str | None:
+    """None where ``decode_png`` reads the file at the size asked for;
+    else what needs PIL, for ``_pil``'s message."""
+    if not is_png(path):
+        return "decoding a non-PNG image"
+    header = _png_header(path)
+    if resize_to is not None and tuple(resize_to) != header[:2]:
+        return "resizing an image"
+    if not numpy_reads(header):
+        _, _, depth, ctype, _, _, interlace = header
+        return (f"decoding a PNG of bit depth {depth}, colour type "
+                f"{ctype}, interlace {interlace}")
+    return None
+
+
 def size(path) -> tuple[int, int]:
     """(width, height), as ``PIL.Image.size``: from a PNG's header, and
     through PIL for other formats."""
     if is_png(path):
-        with open(path, "rb") as f:
-            w, h, *_ = _header(f.read(33), path)
+        w, h, *_ = _png_header(path)
         return w, h
     with _pil(path, "reading the size of a non-PNG image").open(path) as im:
         return im.size
@@ -173,10 +202,9 @@ def load(path, resize_to=None) -> np.ndarray:
     """``np.asarray(PIL.Image.open(path))``, and with ``resize_to`` a
     (width, height) other than the file's, of ``.resize(resize_to)``."""
     path = Path(path)
-    png = is_png(path)
-    if png and (resize_to is None or tuple(resize_to) == size(path)):
+    what = _needs_pil(path, resize_to)
+    if what is None:
         return decode_png(path.read_bytes(), path)[0]
-    what = "resizing an image" if png else "decoding a non-PNG image"
     with _pil(path, what).open(path) as im:
         if resize_to is not None and tuple(resize_to) != im.size:
             im = im.resize(tuple(resize_to))
@@ -186,8 +214,9 @@ def load(path, resize_to=None) -> np.ndarray:
 def load_rgb(path) -> np.ndarray:
     """``np.asarray(PIL.Image.open(path).convert("RGB"))``, uint8 [H, W, 3]."""
     path = Path(path)
-    if not is_png(path):
-        with _pil(path, "decoding a non-PNG image").open(path) as im:
+    what = _needs_pil(path)
+    if what is not None:
+        with _pil(path, what).open(path) as im:
             return np.asarray(im.convert("RGB"))
     pixels, ctype, palette = decode_png(path.read_bytes(), path)
     if ctype == 3:

@@ -3,7 +3,8 @@ reference metrics.py:27-84.
 
 Walks <model_path>/test/ours_<iter>/{renders,gt}, computes SSIM/PSNR (and
 LPIPS when weights are available) on ``--device``, writes results.json and
-per_view.json. PNGs are read with ``data.images`` (no PIL).
+per_view.json. PNGs are read with ``data.images``: 8-bit non-interlaced
+ones without PIL, the others through it, as rain_tpu reads them all.
 
 Usage: python -m rain_tpu_torch.scripts.metrics -m <model_path> [...]
        [--device cpu]

@@ -537,3 +537,17 @@ def test_window_knn_above_2_20_points_on_card_matches_cpu(cuda):
     got = knn_ops.mean_dist3_auto(pts.to(cuda)).cpu()
     torch.testing.assert_close(got, knn_ops.mean_dist3(pts), rtol=1e-6,
                                atol=0.0)
+
+
+def test_e2e_long_run_on_card_passes_the_tests_assertions(cuda, tmp_path):
+    """rain_tpu_torch.scripts.e2e_long at its full 2,500 iterations on the
+    card: tests/test_e2e_long.py's five assertions (``main`` checks them
+    and raises on the first that fails), and the iteration-0 report
+    within one unit of docs/runs/e2e_long_tpu_r4.log's last printed
+    digit."""
+    from rain_tpu_torch.scripts import e2e_long
+    rec = e2e_long.main(["--out", str(tmp_path / "out")])
+    assert rec["stop"] == rec["iterations"] == e2e_long.ITERATIONS
+    assert not any(rec["gt_overflow"])
+    off = e2e_long.units_off(rec["report0"])
+    assert max(max(v) for v in off.values()) <= 1, (off, rec["report0"])

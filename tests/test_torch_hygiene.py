@@ -27,9 +27,10 @@ from rain_tpu_torch.data.dataset import SceneData
 from rain_tpu_torch.eval import lpips
 from rain_tpu_torch.model import adam
 from rain_tpu_torch.model import gaussians as gmod
-from rain_tpu_torch.scripts import (composite_micro, knn_deviation,
-                                    probe_scale, production_30k,
-                                    sustained_growth, trainer_sustained)
+from rain_tpu_torch.scripts import (composite_micro, e2e_long,
+                                    knn_deviation, probe_scale,
+                                    production_30k, sustained_growth,
+                                    trainer_sustained)
 from rain_tpu_torch.train import checkpoint as ckpt
 from rain_tpu_torch.train.trainer import Trainer
 
@@ -45,7 +46,9 @@ SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
                  ROOT / "tests" / "torch_trainer_trace.py",
                  ROOT / "tests" / "torch_colmap_scene.py",
                  ROOT / "tests" / "torch_sharding_cases.py",
-                 ROOT / "tests" / "torch_step_kernels.py"]
+                 ROOT / "tests" / "torch_step_kernels.py",
+                 ROOT / "tests" / "torch_gt_images.py",
+                 ROOT / "tests" / "torch_cli_rank.py"]
 # modules the walk must find, one of each package
 WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",
@@ -61,7 +64,8 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.scripts.knn_deviation",
           "rain_tpu_torch.scripts.trainer_sustained",
           "rain_tpu_torch.scripts.composite_micro",
-          "rain_tpu_torch.scripts.summarize_run")
+          "rain_tpu_torch.scripts.summarize_run",
+          "rain_tpu_torch.scripts.e2e_long")
 SCRIPTS = sorted((ROOT / "rain_tpu_torch" / "scripts").glob("*.py"))
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
@@ -181,6 +185,10 @@ def _entry_points(tmp_path):
             ["--iterations", "2", "--out", str(tmp_path / "s")])["device"],
         "composite_micro.main": lambda: composite_micro.main(
             ["--reps", "1"])["device"],
+        # main runs the whole schedule and its assertions: the card test
+        "e2e_long.run": lambda: e2e_long.run(
+            e2e_long.gt_scene(n_gauss=200, n_cams=4, size=32),
+            str(tmp_path / "e"), stop=1)["device"],
     }
 
 
@@ -192,7 +200,7 @@ def _entry_points(tmp_path):
                                   "sustained_growth.main",
                                   "knn_deviation.main",
                                   "trainer_sustained.main",
-                                  "composite_micro.main"])
+                                  "composite_micro.main", "e2e_long.run"])
 def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
     # the scripts' scenes cut to 500 Gaussians at 64x48, tier 4096
     monkeypatch.setattr(probe_scale, "TIERS", {"1m": (500, 4096, -5.2)})

@@ -153,6 +153,18 @@ def test_gather_shards_gradcheck(checker):
                         timeout_s=TIMEOUT_S, args=(checker,)) == [True, True]
 
 
+def test_reduce_scatter_sums_in_rank_order():
+    """The gather's backward sums the ranks' blocks in rank order on the
+    owner, so NCCL and gloo give the same bits (their own reduce-scatters
+    sum in orders of their own): at 4 ranks every rank's rows equal
+    ((x_0 + x_1) + x_2) + x_3 bit for bit, on values where the reverse
+    order rounds otherwise."""
+    got = launch.spawn(cases.reduce_scatter_order, 4, device="cpu",
+                       timeout_s=TIMEOUT_S, args=(256,))
+    assert all(equal for equal, _ in got), got
+    assert sum(parted for _, parted in got) > 0, got
+
+
 def test_capacity_must_divide_by_the_ranks(start):
     state, *_ = cases.step_inputs(*start, "cpu")
     from rain_tpu_torch.parallel import sharding

@@ -7,11 +7,17 @@ gloo process per rank (parallel.launch.spawn).
   Adam's sign-like first steps let 1e-7 differences grow over the run);
 - a non-zero rank writes no file and makes no TensorBoard writer, as
   tests/test_multihost.py:65-88;
-- devices=2 without an initialised group raises.
+- devices=2 without an initialised group raises;
+- the train CLI over two gloo ranks (--dist_init, --world_size, --rank)
+  against a one-process run of the same argv, at the same bar.
 
 The toy scene is tests/test_training.py's, rendered by the port
 (tests/torch_sharding_cases.py). No JAX.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -59,36 +65,35 @@ def test_devices_without_a_group_raise(tmp_path):
 def test_train_cli_two_ranks(tmp_path):
     """The train CLI as a user starts a sharded run: one process per rank
     with --dist_init, --world_size and --rank (gloo on the CPU), one
-    output folder, written by rank 0 alone."""
-    import os
-    import subprocess
-    import sys
+    output folder, written by rank 0 alone. Its PLY is held against a
+    one-process run of the same argv at the sharded Trainer's bar: the
+    same n_alive, params within 2e-3 in all but 1 in 10,000 rows a leaf;
+    its cameras.json and input.ply are that run's byte for byte."""
     from torch_colmap_scene import toy_scene
     root = tmp_path / "scene"
     toy_scene(root)
-    out = tmp_path / "out"
-    init = (tmp_path / "store").as_uri()
-    argv = [sys.executable, "-m", "rain_tpu_torch.scripts.train", "-s",
-            str(root), "-m", str(out), "--iterations", "4",
-            "--test_iterations", "4", "--num_cams", "3", "--capacity", "400",
-            "--max_instances", "65536", "--device", "cpu", "--devices", "2",
-            "--dist_init", init, "--world_size", "2"]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(argv + ["--rank", str(r)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
+    out, single = tmp_path / "out", tmp_path / "single"
+    argv = ["-s", str(root), "--iterations", "4", "--test_iterations", "4",
+            "--num_cams", "3", "--capacity", "400", "--max_instances",
+            "65536", "--device", "cpu"]
+    rcs, logs, _ = cases.train_cli_ranks(
+        argv + ["-m", str(out), "--devices", "2", "--dist_init",
+                (tmp_path / "store").as_uri(), "--world_size", "2"], 2,
+        tmp_path / "ranks", timeout_s=TIMEOUT_S)
+    for rc, log in zip(rcs, logs):
+        assert rc == 0, log[-3000:]
     assert "Training complete." in logs[0]
     assert "Training complete." not in logs[1]
+    ply = "point_cloud/iteration_4/point_cloud.ply"
     for name in ("cfg_args.json", "cameras.json", "input.ply",
-                 "log_file.txt", "point_cloud/iteration_4/point_cloud.ply"):
+                 "log_file.txt", ply):
         assert (out / name).is_file(), name
+    one = subprocess.run(
+        [sys.executable, "-m", "rain_tpu_torch.scripts.train", *argv, "-m",
+         str(single)], env=dict(os.environ, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert one.returncode == 0, one.stdout[-3000:] + one.stderr[-3000:]
+    for name in ("cameras.json", "input.ply"):
+        assert (out / name).read_bytes() == (single / name).read_bytes()
+    rec = cases.ply_agreement(out / ply, single / ply)
+    assert cases.ply_agrees(rec), rec

@@ -5,12 +5,22 @@ Each is called as ``fn(rank, device, *args)`` with the default group
 initialised, and returns plain data (numpy arrays, numbers) on rank 0 and
 None on the other ranks unless it says otherwise. The module imports numpy,
 torch and the port only: the ranks never import jax.
+
+The train CLI's sharded runs start one process per rank themselves
+(``train_cli_ranks``), and ``ply_agreement`` holds the PLY of one run to
+another's at the sharded Trainer's bar (``PLY_BAR``, ``PLY_OUTLIERS``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -165,6 +175,31 @@ def gather_gradcheck(rank, device, checker):
                                 retain_graph=True)
 
 
+def reduce_scatter_order(rank, device, rows_per_rank):
+    """distributed.reduce_scatter of each rank's seeded cotangent
+    [world·rows_per_rank, 3] f32, against this rank's rows of the sum in
+    rank order, ((x_0 + x_1) + x_2) + ..., and of the sum in reverse
+    order; the values span many magnitudes, so that the two orders round
+    apart. Returns (equal to rank order bit for bit, rows where the two
+    orders part) on every rank."""
+    world = distributed.world_size()
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal(
+        (world * rows_per_rank, 3)).astype(np.float32) * np.float32(
+            10.0 ** np.random.default_rng(100 + r).integers(
+                -4, 5, (world * rows_per_rank, 1)))).to(device)
+          for r in range(world)]
+    got = distributed.reduce_scatter(xs[rank].clone())
+    rows = slice(rank * rows_per_rank, (rank + 1) * rows_per_rank)
+    forward, backward = xs[0][rows].clone(), xs[-1][rows].clone()
+    for x in xs[1:]:
+        forward += x[rows]
+    for x in xs[-2::-1]:
+        backward += x[rows]
+    return (bool(torch.equal(got.view(torch.int32),
+                             forward.view(torch.int32))),
+            int((forward != backward).any(dim=1).sum()))
+
+
 # -- the Trainer --------------------------------------------------------------
 def toy_scene(n_cams=6, n_pts=120, size=48, seed=0) -> SceneData:
     """tests/test_training.py's toy scene, rendered by the port on the
@@ -238,7 +273,6 @@ def write_gate(rank, device, root):
     ``root``, asked for TensorBoard, a report, a PLY and a checkpoint at
     iteration 2. Returns (files written under its path, whether it made
     a TensorBoard writer) on every rank."""
-    from pathlib import Path
     out = Path(root) / f"rank{rank}"
     cfgs = trainer_configs(2, iterations=2, densify_from_iter=10_000)
     tr = Trainer(toy_scene(n_cams=3, n_pts=60), cfgs, str(out),
@@ -248,6 +282,100 @@ def write_gate(rank, device, root):
              checkpoint_iterations=(2,))
     return (sorted(str(p.relative_to(out)) for p in out.rglob("*")
                    if p.is_file()), tr.tb is not None)
+
+
+# -- the train CLI, one process per rank -------------------------------------
+# a sharded run's params against another run's: within PLY_BAR in all but
+# PLY_OUTLIERS of each leaf's rows (a gradient at its rounding's level takes
+# either sign in the two runs, and Adam turns each such sign into a step of
+# lr; tests/test_sharding.py:98-106)
+PLY_BAR = 2e-3
+PLY_OUTLIERS = 1e-4
+
+
+def free_port() -> int:
+    """A TCP port of localhost that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_cli_ranks(argv, world, work_dir, *, counts=False, timeout_s=600,
+                    env=None):
+    """``python -m rain_tpu_torch.scripts.train`` with ``argv`` (which
+    names the group: --devices, --dist_init, --world_size) as ``world``
+    processes, rank r with ``--rank r``, all started together, each
+    writing its output to ``work_dir``/rank<r>.log. With ``counts`` each
+    rank runs through tests/torch_cli_rank.py, which writes its kernels'
+    launches to ``work_dir``/rank<r>.json. Returns (each rank's exit
+    code, each rank's output, the wall seconds until the last one ended).
+    The ranks still running after ``timeout_s`` are killed (exit code
+    -9); no process outlives the call."""
+    root = Path(__file__).resolve().parent.parent
+    work_dir = Path(work_dir)
+    work_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), env.get("PYTHONPATH")) if p)
+
+    def command(r):
+        head = ([str(root / "tests" / "torch_cli_rank.py"),
+                 str(work_dir / f"rank{r}.json")] if counts
+                else ["-m", "rain_tpu_torch.scripts.train"])
+        return [sys.executable, *head, *argv, "--rank", str(r)]
+
+    # a file per rank, not a pipe: a rank blocked on a full pipe would
+    # stall every other rank at the next collective
+    t = time.perf_counter()
+    procs = []
+    try:
+        for r in range(world):
+            with open(work_dir / f"rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    command(r), env=env, cwd=root, stdout=log,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                break       # the ranks still running are killed: -9
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall_s = time.perf_counter() - t
+    logs = [(work_dir / f"rank{r}.log").read_text(errors="replace")
+            for r in range(world)]
+    return [p.returncode for p in procs], logs, wall_s
+
+
+def ply_agreement(path, ref_path):
+    """The PLY at ``path`` against the one at ``ref_path``: their rows
+    (n_alive), and per leaf the largest row error past the
+    PLY_OUTLIERS share of the farthest rows and the rows off by PLY_BAR
+    or more. Rows compare in order: a sharded run's gathered state keeps
+    the single-device row order."""
+    from rain_tpu_torch.data import ply as ply_io
+    got, want = ply_io.read_gaussians(path), ply_io.read_gaussians(ref_path)
+    n, n_ref = got["xyz"].shape[0], want["xyz"].shape[0]
+    rec = {"n_alive": n, "n_alive_ref": n_ref, "max_abs_err_but_outliers":
+           {}, "rows_over_bar": {}, "outliers_allowed": int(
+               PLY_OUTLIERS * n_ref)}
+    if n != n_ref:
+        return rec
+    for name in ("xyz", "f_dc", "f_rest", "scaling", "rotation", "opacity"):
+        d = np.abs(got[name] - want[name]).reshape(n, -1).max(axis=1)
+        rec["max_abs_err_but_outliers"][name] = float(
+            np.sort(d)[-1 - rec["outliers_allowed"]]) if n else 0.0
+        rec["rows_over_bar"][name] = int((d >= PLY_BAR).sum())
+    return rec
+
+
+def ply_agrees(rec) -> bool:
+    """``ply_agreement``'s record meets the bar."""
+    return rec["n_alive"] == rec["n_alive_ref"] and all(
+        v < PLY_BAR for v in rec["max_abs_err_but_outliers"].values())
 
 
 # -- a band whose first tile row lies above the image ----------------------
