@@ -248,6 +248,21 @@ Phases, in order; any failure exits non-zero before the result lines:
    population and PSNR. Recorded: host ms per iteration, wall time, peak
    memory, every capacity growth and retry.
 
+14. The part-mask overlays of rain_tpu/tools/combine_masks.py
+   (rain_tpu_torch.tools.combine_masks; no kernel of its own: a handful
+   of element-wise operations). blend at 1297x840 on the card against the
+   CPU path and against rain_tpu's numpy arithmetic, bit for bit, at two
+   alphas: four masks that take every value 0-255, then one such mask,
+   an empty one, an all-255 one and a binary one. Then, where PIL imports
+   (the frame-name stamp needs it; without it the CLI is skipped and
+   said so), combine_masks.main --device cuda over three seeded frames
+   of 1297x840 with four masks each (written with the port's PNG writer;
+   an empty and a missing mask, an all-255 one) against --device cpu,
+   pixel for pixel. Recorded: blend's device ms per frame, the CLI's ms
+   per frame on the card and the CPU, and, for the record, at how many
+   of the 256 mask values the card's division by a host scalar (torch
+   multiplies by its reciprocal there) parts from numpy's.
+
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
 (each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12 and 13,
 and its ms and bound ms at phase 12's tiers) and, last,
@@ -303,6 +318,7 @@ from rain_tpu_torch.scripts import production_30k
 from rain_tpu_torch.scripts import render as render_cli
 from rain_tpu_torch.scripts import sustained_growth
 from rain_tpu_torch.scripts import train as train_cli
+from rain_tpu_torch.tools import combine_masks
 from rain_tpu_torch.train import checkpoint
 from rain_tpu_torch.train import step
 from rain_tpu_torch.train import trainer as trainer_mod
@@ -2589,6 +2605,147 @@ def e2e_phase(kernels):
     return rec
 
 
+# --- 14. the part-mask overlays ------------------------------------------
+TOOLS_FRAMES = 3
+TOOLS_ALPHAS = (0.5, 0.3)
+
+
+def every_value(rng, shape):
+    """float32 ``shape`` filled with permutations of 0-255 end to end:
+    every mask value, each about as often."""
+    n = math.prod(shape)
+    flat = np.concatenate([rng.permutation(256) for _ in range(-(-n // 256))])
+    return flat[:n].reshape(shape).astype(np.float32)
+
+
+def numpy_blend(base, masks, alpha):
+    """rain_tpu/tools/combine_masks.py:49-59 in numpy (None: missing)."""
+    final = base.copy()
+    for mask, color in zip(masks, combine_masks.DEFAULT_COLORS.values()):
+        if mask is None or not (mask > 0).any():
+            continue
+        color_img = (mask[..., None] / 255.0) * np.array(color, np.float32)
+        a = (mask / 255.0 * alpha)[..., None]
+        final = (1 - a) * final + a * color_img
+    return final
+
+
+def blend_cases(rng):
+    """Phase 14's masks at 1297x840: four of every value 0-255; every
+    value, an empty mask, an all-255 mask and a seeded binary one."""
+    shape = (HEIGHT, WIDTH)
+    binary = np.where(rng.random(shape) < 0.5, 255.0, 0.0).astype(np.float32)
+    return {"every_value": [every_value(rng, shape) for _ in range(4)],
+            "empty_full_binary": [every_value(rng, shape),
+                                  np.zeros(shape, np.float32),
+                                  np.full(shape, 255.0, np.float32), binary]}
+
+
+def mask_frames(root, rng):
+    """Phase 14's CLI input: TOOLS_FRAMES base frames of 1297x840 and their
+    masks as 8-bit PNGs, written with the port's PNG writer; frame 1 has
+    an empty 001 and no 002, frame 2 an all-255 003."""
+    for k in range(TOOLS_FRAMES):
+        frame = f"frame_{k:03d}"
+        images.save_png(root / "base" / f"{frame}.png",
+                        rng.integers(0, 256, (HEIGHT, WIDTH, 3), np.uint8))
+        for j, name in enumerate(combine_masks.DEFAULT_COLORS):
+            mask = every_value(rng, (HEIGHT, WIDTH)).astype(np.uint8)
+            if (k, j) == (1, 1):
+                mask[:] = 0
+            elif (k, j) == (1, 2):
+                continue
+            elif (k, j) == (2, 3):
+                mask[:] = 255
+            images.save_png(root / "masks" / frame / name, mask)
+
+
+def tools_phase():
+    """Phase 14: rain_tpu_torch.tools.combine_masks on the card. ``blend``
+    at 1297x840 on the card against the CPU path and against rain_tpu's
+    numpy arithmetic, bit for bit, at every mask value and with an empty,
+    an all-255 and a binary mask, at two alphas; then, where PIL imports
+    (the frame-name stamp needs it), ``combine_masks.main --device cuda``
+    over three frames against ``--device cpu``, pixel for pixel. Returns
+    the phase's record."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(14)
+    base = rng.integers(0, 256, (HEIGHT, WIDTH, 3)).astype(np.float32)
+    base_dev = torch.from_numpy(base).to(DEV)
+    cases, checked = blend_cases(rng), 0
+    for name, masks in cases.items():
+        cpu_masks = [torch.from_numpy(m) for m in masks]
+        dev_masks = [m.to(DEV) for m in cpu_masks]
+        for alpha in TOOLS_ALPHAS:
+            want = numpy_blend(base, masks, alpha)
+            on_cpu = combine_masks.blend(torch.from_numpy(base), cpu_masks,
+                                         alpha)
+            on_card = combine_masks.blend(base_dev, dev_masks, alpha).cpu()
+            if not np.array_equal(on_cpu.numpy().view(np.uint32),
+                                  want.view(np.uint32)):
+                raise AssertionError(f"blend on the CPU differs from "
+                                     f"rain_tpu's arithmetic ({name}, "
+                                     f"alpha {alpha})")
+            if not torch.equal(on_card.view(torch.int32),
+                               on_cpu.view(torch.int32)):
+                bad = int((on_card != on_cpu).sum())
+                raise AssertionError(f"blend on the card differs from the "
+                                     f"CPU path at {bad} values ({name}, "
+                                     f"alpha {alpha})")
+            checked += 1
+    # for the record: torch's division by a host scalar on the card (a
+    # product by its reciprocal) against numpy's, over the 256 mask values
+    values = torch.arange(256, dtype=torch.float32)
+    host_div = int(((values.to(DEV) / 255.0).cpu() !=
+                    torch.from_numpy(values.numpy() / 255.0)).sum())
+    masks_dev = [torch.from_numpy(m).to(DEV) for m in cases["every_value"]]
+    blend_ms = device_ms(lambda: combine_masks.blend(base_dev, masks_dev,
+                                                     0.5))
+    print(f"tools: blend at {WIDTH}x{HEIGHT} on the card equals the CPU "
+          f"path and rain_tpu's arithmetic bit for bit ({checked} cases); "
+          f"{blend_ms:.4f} ms per frame on the card ({nvidia_smi()}); "
+          f"dividing by a host scalar instead would part from numpy at "
+          f"{host_div} of the 256 mask values")
+    rec = {"blend_cases": checked, "blend_ms": blend_ms,
+           "host_scalar_division_off": host_div}
+    if importlib.util.find_spec("PIL") is None:
+        print("tools: PIL does not import here; skipped the combine_masks "
+              "CLI (its frame-name stamp needs PIL)")
+        rec.update(cli="skipped: no PIL", phase_s=time.perf_counter() -
+                   t_phase)
+        return rec
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tmp = Path(tmp)
+        mask_frames(tmp, rng)
+        argv = ["--masks", str(tmp / "masks"), "--base", str(tmp / "base")]
+        wall = {}
+        for run, dev in (("card", "cuda"), ("cpu", "cpu"),
+                         ("card_again", "cuda")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = combine_masks.main(argv + ["--out", str(tmp / run),
+                                             "--device", dev])
+            wall[run] = time.perf_counter() - t
+            if got["overlays"] != TOOLS_FRAMES or \
+                    not got["device"].startswith(dev):
+                raise AssertionError(f"combine_masks --device {dev}: {got}")
+        for k in range(TOOLS_FRAMES):
+            png = f"frame_{k:03d}.png"
+            for run in ("card", "card_again"):
+                if not np.array_equal(images.load(tmp / run / png),
+                                      images.load(tmp / "cpu" / png)):
+                    raise AssertionError(f"combine_masks --device cuda: "
+                                         f"{png} differs from --device cpu")
+    ms = {run: 1e3 * s / TOOLS_FRAMES for run, s in wall.items()}
+    print(f"tools: combine_masks --device cuda over {TOOLS_FRAMES} frames "
+          f"of {WIDTH}x{HEIGHT} equals --device cpu pixel for pixel; ms per "
+          f"frame (read, blend, stamp, PNG write): card "
+          f"{ms['card']:.1f} (first call) and {ms['card_again']:.1f}, cpu "
+          f"{ms['cpu']:.1f} ({nvidia_smi()})")
+    rec.update(cli_ms_per_frame=ms, phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2868,6 +3025,8 @@ def main(out: Path | None = None):
     # --- 13. the long end-to-end run from a sparse init ---------------------
     torch.cuda.empty_cache()
     e2e_rec = e2e_phase(kernels)
+    # --- 14. the part-mask overlays -----------------------------------------
+    tools_rec = tools_phase()
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
@@ -2916,6 +3075,7 @@ def main(out: Path | None = None):
         "sharded": sharded_rec,
         "scale": scale_rec,
         "e2e": e2e_rec,
+        "tools": tools_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:

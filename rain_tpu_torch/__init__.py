@@ -23,6 +23,10 @@ reference's, module by module:
              ``eval_render``, npz checkpoints and PLY snapshots.
   csrc/    — the hand-written CUDA C++ kernels (sm_90a), built by
              ``_build`` with nvcc at first use.
+  tools/   — the part-mask overlays (``combine_masks``, blended on
+             ``--device``), the SAM2 mask CLIs (``sam2_image_masks``,
+             ``sam2_video_masks``; the external ``sam2`` package) and the
+             VLM probes of ``tools/vlm`` (host only; ``openai``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card they raise. Each kernel wrapper picks its
@@ -30,7 +34,8 @@ path from its input's device: a CPU tensor runs the plain PyTorch version,
 a CUDA tensor launches the kernel.
 
 The package imports torch, numpy and the standard library (and PIL where
-a JPEG or a resize needs it) — never ``jax`` or ``rain_tpu``.
+a JPEG, a resize or a tool's drawing needs it; ``sam2``, ``openai`` and
+``cv2`` in the tools that call them) — never ``jax`` or ``rain_tpu``.
 """
 
 import torch

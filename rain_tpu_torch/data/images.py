@@ -9,7 +9,11 @@ for PNG, the format the loaders, the render CLI and the metrics CLI use:
   for grey and for palette images (their indices, as PIL gives them),
   [H, W, 2] for grey+alpha, [H, W, 3] for RGB, [H, W, 4] for RGBA;
 - ``load_rgb(path)`` is ``np.asarray(PIL.Image.open(path).convert("RGB"))``;
-- ``save_png(path, arr)`` writes uint8 [H, W], [H, W, 3] or [H, W, 4].
+- ``load_grey(path)`` is ``np.asarray(PIL.Image.open(path).convert("L"))``
+  (numpy for 8-bit grey PNGs only: PIL's luma rounding is not imitated);
+- ``save_png(path, arr)`` writes uint8 [H, W], [H, W, 3] or [H, W, 4];
+- ``save(path, arr)`` is ``PIL.Image.fromarray(arr).save(path)``: PNG by
+  ``save_png``, other formats by PIL.
 
 The decoder reads 8-bit, non-interlaced PNGs of the five colour types
 with all five scanline filters (``numpy_reads`` tells them by their
@@ -42,7 +46,7 @@ def _pil(path, what: str):
     except ImportError:
         raise RuntimeError(f"{path}: {what} needs PIL, which does not "
                            f"import here; only 8-bit non-interlaced PNG is "
-                           f"read without it") from None
+                           f"read or written without it") from None
     return Image
 
 
@@ -227,6 +231,20 @@ def load_rgb(path) -> np.ndarray:
     return np.ascontiguousarray(pixels[:, :, :3])
 
 
+def load_grey(path) -> np.ndarray:
+    """``np.asarray(PIL.Image.open(path).convert("L"))``, uint8 [H, W].
+
+    An 8-bit grey PNG is decoded here; every other image goes through
+    PIL's own ``convert("L")``, whose luma rounding is the contract."""
+    path = Path(path)
+    what = _needs_pil(path)
+    if what is None and _png_header(path)[3] == 0:
+        return decode_png(path.read_bytes(), path)[0]
+    with _pil(path, what or "converting a colour image to grey").open(
+            path) as im:
+        return np.asarray(im.convert("L"))
+
+
 def encode_png(arr: np.ndarray) -> bytes:
     """An 8-bit PNG of uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4]
     (RGBA): every row filter type 0, one zlib stream at level 6."""
@@ -254,3 +272,13 @@ def save_png(path, arr: np.ndarray):
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_bytes(encode_png(arr))
+
+
+def save(path, arr: np.ndarray):
+    """``PIL.Image.fromarray(arr).save(path)`` for uint8 [H, W], [H, W, 3]
+    or [H, W, 4]: a ``.png`` by ``save_png``, any other format by PIL."""
+    path = Path(path)
+    if path.suffix.lower() == ".png":
+        save_png(path, arr)
+        return
+    _pil(path, f"writing a {path.suffix} image").fromarray(arr).save(path)

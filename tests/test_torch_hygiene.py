@@ -15,13 +15,16 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+import torch_sam2_stub as sam2_stub
 from rain_tpu_torch import config as cfg_mod
 from rain_tpu_torch import entry as entry_mod
+from rain_tpu_torch.data import images
 from rain_tpu_torch.data.cameras import Camera
 from rain_tpu_torch.data.dataset import SceneData
 from rain_tpu_torch.eval import lpips
@@ -31,6 +34,8 @@ from rain_tpu_torch.scripts import (composite_micro, e2e_long,
                                     knn_deviation, probe_scale,
                                     production_30k, sustained_growth,
                                     trainer_sustained)
+from rain_tpu_torch.tools import (combine_masks, sam2_image_masks,
+                                  sam2_video_masks)
 from rain_tpu_torch.train import checkpoint as ckpt
 from rain_tpu_torch.train.trainer import Trainer
 
@@ -65,7 +70,9 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.scripts.trainer_sustained",
           "rain_tpu_torch.scripts.composite_micro",
           "rain_tpu_torch.scripts.summarize_run",
-          "rain_tpu_torch.scripts.e2e_long")
+          "rain_tpu_torch.scripts.e2e_long",
+          "rain_tpu_torch.tools.combine_masks",
+          "rain_tpu_torch.tools.vlm.common")
 SCRIPTS = sorted((ROOT / "rain_tpu_torch" / "scripts").glob("*.py"))
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
@@ -131,6 +138,14 @@ def _raw(n=4):
                 opacity=np.zeros((n, 1)))
 
 
+def _sam2_device(main, argv):
+    """The device ``main`` handed to a stand-in ``build_sam2``."""
+    calls = []
+    with mock.patch.dict(sys.modules, sam2_stub.modules(calls)):
+        main(argv)
+    return calls[0][3]
+
+
 def _entry_points(tmp_path):
     """Each entry point called without a device."""
     path = tmp_path / "g.ply"
@@ -145,6 +160,9 @@ def _entry_points(tmp_path):
                       colors=np.full((8, 3), 0.5, np.float32),
                       nerf_radius=1.0, nerf_translate=np.zeros(3))
     cfgs = cfg_mod.extract_all(cfg_mod.build_parser("t").parse_args([]))
+    frame = np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3)
+    images.save_png(tmp_path / "frames" / "0.png", frame)
+    images.save_png(tmp_path / "masks" / "0" / "000.png", frame[..., 0])
     return {
         "from_arrays": lambda: gmod.from_arrays(**_raw()).params.xyz,
         "from_numpy": lambda: gmod.from_numpy(
@@ -189,6 +207,17 @@ def _entry_points(tmp_path):
         "e2e_long.run": lambda: e2e_long.run(
             e2e_long.gt_scene(n_gauss=200, n_cams=4, size=32),
             str(tmp_path / "e"), stop=1)["device"],
+        "combine_masks.main": lambda: combine_masks.main(
+            ["--masks", str(tmp_path / "masks"), "--base",
+             str(tmp_path / "frames"), "--out", str(tmp_path / "o")]
+        )["device"],
+        "sam2_image_masks.main": lambda: _sam2_device(
+            sam2_image_masks.main, ["-i", str(tmp_path / "frames"), "-o",
+                                    str(tmp_path / "s")]),
+        "sam2_video_masks.main": lambda: _sam2_device(
+            sam2_video_masks.main, ["--video_path", str(tmp_path / "frames"),
+                                    "--out", str(tmp_path / "v"),
+                                    "--checkpoint", "w.pt"]),
     }
 
 
@@ -200,7 +229,10 @@ def _entry_points(tmp_path):
                                   "sustained_growth.main",
                                   "knn_deviation.main",
                                   "trainer_sustained.main",
-                                  "composite_micro.main", "e2e_long.run"])
+                                  "composite_micro.main", "e2e_long.run",
+                                  "combine_masks.main",
+                                  "sam2_image_masks.main",
+                                  "sam2_video_masks.main"])
 def test_entry_point_defaults_to_cuda(name, tmp_path, monkeypatch):
     # the scripts' scenes cut to 500 Gaussians at 64x48, tier 4096
     monkeypatch.setattr(probe_scale, "TIERS", {"1m": (500, 4096, -5.2)})
