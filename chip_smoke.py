@@ -60,7 +60,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    the compositors' resident blocks per SM and each kernel's ptxas line
    (registers, shared memory, spills); and, for the record, a [16, M]
    zero fill alone (what B4's output cost before B4 wrote its zeros).
-7. The Trainer loop at full width: rain_tpu_torch.train.trainer.Trainer
+7. The Trainer loop at full width: rain_tpu_torch.train.trainer.Trainer,
+   its steps and report frames through its compiled step
+   (rain_tpu_torch.train.compiled: one CUDA graph per key, as in phases
+   8, 9, 12 and 13; each selected step of a KernelCapture runs eager),
    trains the 262k proxy at 1297x840 (SH degree 3, active degree 0 under
    the ours_new schedule) from its own points (the exact KNN at 262,144),
    with the 5 poses of phase 3 as train cameras and two more poses of the
@@ -81,7 +84,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    the opacity, keep every loss and param finite, raise the held-out PSNR
    and reload its PLY with n_alive rows. A second run from seed 0 (B,
    profiled over iterations 10-19) equals A's checkpoint at 25 bit for
-   bit. At B's first step after the growth (iteration 21: capacity
+   bit. A run E, A's loop with the compiled step's methods replaced by
+   the eager step and render, equals A bit for bit: every step's tier,
+   capacity, n_alive, loss and instances, each round's DensifyInfo, the
+   reports at 0 and 60 and the final state. At B's first step after the
+   growth (iteration 21: capacity
    786,432 with dead rows at its tail, the grown tier) B1, B3, B4 and B2
    are held against their plain versions bit for bit on that step's
    inputs, and timed there beside their bounds. A run with pipeline 0
@@ -91,7 +98,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    growth (the state's) and retried step, tiers and instance counts of
    every step, n_alive per round, the device's busy time per iteration
    and its idle share over B's profiled window (busy time over that
-   window's host-clock time), peak memory, the synchronising calls of one
+   window's host-clock time), peak memory, A's captures (key, ms) and
+   host ms per iteration and peak memory of A and E, the synchronising
+   calls of one
    step and of one bucketed step with the file:line of each (sync debug
    mode), the report frames rendered again because the training tier
    could not hold them, and B2's segments at the Trainer step (length
@@ -244,9 +253,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    against the CPU path's at the oracle tolerances, each value past them
    a threshold flip that an f64 render settles, the same instance counts,
    no overflow; a train_step at the end state makes no synchronising
-   call. Printed beside the port's, not checked: the logs' growths, final
-   population and PSNR. Recorded: host ms per iteration, wall time, peak
-   memory, every capacity growth and retry.
+   call; the run's first 600 iterations (past the growth at 500) through
+   the compiled step and through the eager one give the same steps,
+   capacity events, reports and state bit for bit. Printed beside the
+   port's, not checked: the logs' growths, final population and PSNR.
+   Recorded: host ms per iteration, wall time, peak memory, every
+   capacity growth and retry, the captures, and the 600-iteration runs'
+   host ms per iteration and peak memory.
 
 14. The part-mask overlays of rain_tpu/tools/combine_masks.py
    (rain_tpu_torch.tools.combine_masks; no kernel of its own: a handful
@@ -263,9 +276,25 @@ Phases, in order; any failure exits non-zero before the result lines:
    of the 256 mask values the card's division by a host scalar (torch
    multiplies by its reciprocal there) parts from numpy's.
 
+15. The compiled step (rain_tpu_torch.train.compiled: train_step and
+   eval_render captured once per key into a CUDA graph, every per-call
+   value a 0-d device tensor) on the 262k proxy at 1297x840, held to the
+   eager step bit for bit: the 5 poses rendered, each frame with another
+   camera, low_pass, scale_modifier and n_alive than the captured frame
+   0, and 5 chained training steps from phase 4's perturbed state, each
+   with another camera, ground truth, low_pass, xyz_lr and n_alive; the
+   launch counters count each compiled call once (replays included); a
+   replayed step and frame make no synchronising call. Recorded for the
+   eager and the compiled path: host ms per step and per frame (each
+   call synchronised, in turns, and 10 calls queued), the device's busy
+   time and operations and the host's launch calls per call
+   (torch.profiler), CUDA-event ms, peak and reserved memory over three
+   calls from a fresh CompiledStep (the capture's included), and the
+   captures (key, ms).
+
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
-(each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12 and 13,
-and its ms and bound ms at phase 12's tiers) and, last,
+(each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12, 13
+and 15, and its ms and bound ms at phase 12's tiers) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -320,6 +349,7 @@ from rain_tpu_torch.scripts import sustained_growth
 from rain_tpu_torch.scripts import train as train_cli
 from rain_tpu_torch.tools import combine_masks
 from rain_tpu_torch.train import checkpoint
+from rain_tpu_torch.train import compiled
 from rain_tpu_torch.train import step
 from rain_tpu_torch.train import trainer as trainer_mod
 
@@ -537,11 +567,17 @@ def step_kernels(seen, width, height, max_instances):
     return kernels, work
 
 
+# the CUDA runtime's launch calls: kernels, graphs, copies and fills
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def device_profile(run_once, reps=3):
     """torch.profiler over `reps` calls: per call, the device's busy time
     (the sum of its kernels' and copies' times; one stream, so they do not
     overlap), the number of device operations launched and the largest of
-    them by time."""
+    them by time, and the host's launch calls (HOST_LAUNCH_CALLS)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -559,6 +595,8 @@ def device_profile(run_once, reps=3):
         "launches": sum(e.count for e in ops) / reps,
         "top": [[e.key[:100], e.self_device_time_total / 1e3 / reps,
                  e.count / reps] for e in ops[:12]],
+        "host_launches": sum(e.count for e in prof.key_averages()
+                             if e.key in HOST_LAUNCH_CALLS) / reps,
     }
 
 
@@ -737,6 +775,15 @@ def snapshot(state, opt):
             [getattr(state, k) for k in gmod.STAT_FIELDS])
 
 
+def host_snapshot(state, opt):
+    """``snapshot`` copied to host memory."""
+    def host(xs):
+        return gmod.GaussianParams(*[x.cpu() for x in xs])
+    return (host(state.params),
+            adam_mod.AdamState(host(opt.mu), host(opt.nu), opt.step.cpu()),
+            [getattr(state, k).cpu() for k in gmod.STAT_FIELDS])
+
+
 # --- 7. the Trainer loop -------------------------------------------------
 TRAINER_TEST_POSES = (5, 6)       # two more poses of the pan, held out
 TRAINER_ITERS = 60
@@ -807,19 +854,27 @@ def timed(fn, *a, **kw):
 
 
 @contextlib.contextmanager
-def recorded(capture=None):
+def recorded(capture=None, eager=False):
     """A Trainer's loop recorded while active by the wrappers of
     tests/torch_trainer_trace.py, which the Trainer tests share: every
-    step's call, round, reset and growth, each round and growth timed with
-    a synchronize on each side. ``capture`` (a KernelCapture) wraps
-    train_step once more."""
+    step's call (the Trainer's calls of its CompiledStep, whose replays
+    never reach the step module), round, reset and growth, each round and
+    growth timed with a synchronize on each side. ``capture`` (a
+    KernelCapture) wraps the step first. ``eager`` replaces the
+    CompiledStep's methods by the eager step and render: the run the
+    compiled one is held to."""
     with TRACE.Patches() as patches:
-        trace = TRACE.record(patches.setattr, step, densify_mod, gmod,
-                             timer=timed)
+        if eager:
+            patches.setattr(compiled.CompiledStep, "train_step",
+                            lambda self, *a, **kw: step.train_step(*a, **kw))
+            patches.setattr(compiled.CompiledStep, "eval_render",
+                            lambda self, *a, **kw: step.eval_render(*a,
+                                                                    **kw))
         if capture is not None:
-            patches.setattr(step, "train_step",
-                            capture.wrap(step.train_step))
-        yield trace
+            patches.setattr(compiled.CompiledStep, "train_step",
+                            capture.wrap(compiled.CompiledStep.train_step))
+        yield TRACE.record(patches.setattr, compiled.CompiledStep,
+                           densify_mod, gmod, timer=timed)
 
 
 @torch.no_grad()
@@ -861,8 +916,10 @@ class KernelCapture:
     does not overflow its tier: in phase 7 the first at a capacity above
     the initial one (after a growth, so with dead rows at the tail of the
     state), in phase 9 the first above the initial instance tier (the
-    retried iteration 1). Such steps run with an on_stage hook, and the
-    checks run as the step returns; their launches are not counted."""
+    retried iteration 1). Such a step runs as the eager train_step with an
+    on_stage hook (a replay has none; the two give the same bits, phase
+    15), and the checks run as the step returns; their launches are not
+    counted."""
 
     def __init__(self, when):
         self.when = when
@@ -870,16 +927,19 @@ class KernelCapture:
         self.b2_tiles = None   # B2's tiles and M there, for chip_ablate.py
 
     def wrap(self, train_step):
-        def wrapped(state, opt, *a, **kw):
+        """``train_step``: CompiledStep.train_step, which the wrapper
+        replaces."""
+        def wrapped(steps, state, opt, *a, **kw):
             if self.result is not None or not self.when(state, kw):
-                return train_step(state, opt, *a, **kw)
+                return train_step(steps, state, opt, *a, **kw)
             seen = {}
-            out = train_step(state, opt, *a, on_stage=stage_hook(seen), **kw)
+            out = step.train_step(state, opt, *a, on_stage=stage_hook(seen),
+                                  **kw)
             if not bool(out[2].instance_overflow):
                 counts = read_counts()
                 self.result = trainer_step_kernels(
                     seen, kw["width"], kw["height"], kw["max_instances"],
-                    state)
+                    state._replace(n_alive=int(state.n_alive)))
                 set_counts(counts)
                 self.b2_tiles = (seen["reduce_B2"][2].cpu().numpy(),
                                  kw["max_instances"])
@@ -896,7 +956,7 @@ def loop_summary(trace, first=1):
     steps, one per iteration from ``first`` on, and the host ms of each
     iteration runs from its kept step's call to the next one's. Also each
     retry (its time to the next step's call), round, growth and reset."""
-    calls, t = trace["calls"], trace["t"]
+    calls, t = TRACE.calls(trace), trace["t"]
     at = [i for i, c in enumerate(calls) if c[0] == "step"]
     steps = [calls[i][6:8] + calls[i][10:11] + v
              for i, v in zip(at, TRACE.steps(trace))]
@@ -1164,7 +1224,49 @@ def trainer_phase(arrays, out=None):
             "syncs_per_bucketed_step": syncs["bucketed"][0],
             "sync_sites": {k: v[1] for k, v in syncs.items()},
             "report_rerenders": rerenders})
+        snap_a = host_snapshot(tr.state, tr.opt_state)
+        captures_a = [[list(k), ms] for k, ms in tr._steps.captures]
+        keys_a = len(tr._step_keys)
         del tr, ply, cam_in, gt, gt_bucket
+
+        # E: run A again with CompiledStep's methods replaced by the eager
+        # step and render: the same steps, rounds, reports and state, bit
+        # for bit
+        with recorded(eager=True) as trace_e:
+            te = trainer_mod.Trainer(scene, trainer_configs(), tmp / "e",
+                                     log_fn=log, tensorboard=False)
+            e0 = te.report(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            te.train(iterations=TRAINER_ITERS,
+                     test_iterations=(TRAINER_ITERS,),
+                     save_iterations=(TRAINER_ITERS,),
+                     checkpoint_iterations=(BITWISE_AT, 30))
+            torch.cuda.synchronize()
+            peak_e = torch.cuda.max_memory_allocated() / 2**20
+        e = loop_summary(trace_e)
+        if e["steps"] != a["steps"] or e0 != r0 or \
+                te.history[-1] != r60 or \
+                [r["info"] for r in e["rounds"]] != \
+                [r["info"] for r in a["rounds"]] or \
+                te._steps.captures or not same_bits(
+                    host_snapshot(te.state, te.opt_state), snap_a):
+            raise AssertionError("the Trainer through its compiled step "
+                                 "differs from the eager one")
+        e_ms = quartiles([e["iteration_ms"][i] for i in HOST_ITERS])
+        rec["compiled_vs_eager"] = {
+            "host_ms_compiled": rec["host_ms_pipeline1"],
+            "host_ms_eager": e_ms, "peak_mib_compiled": peak_mib,
+            "peak_mib_eager": peak_e, "captures": captures_a,
+            "step_keys": keys_a, "steps": len(a["steps"])}
+        print(f"trainer: through the compiled step (A) and the eager one "
+              f"(E): {len(a['steps'])} steps, rounds, reports and state "
+              f"bit for bit; host ms per iteration (median, iterations "
+              f"{HOST_ITERS[0]}-{HOST_ITERS[-1]}) "
+              f"{rec['host_ms_pipeline1']['median']:.2f} against "
+              f"{e_ms['median']:.2f}; peak {peak_mib:.0f} and {peak_e:.0f} "
+              f"MiB; {len(captures_a)} captures (key, ms) {captures_a}")
+        del te, snap_a
 
         # B: the same seed, pipelined, to 25: profiled over 10 iterations,
         # and B1-B4 held against their plain versions at iteration 21, the
@@ -1313,7 +1415,8 @@ def cli_scene(root, arrays):
         cam = pose(k)
         out, _ = trainer_mod.render_whole(
             state, cam.render_inputs(DEV), bg, LOW_PASS, width=WIDTH,
-            height=HEIGHT, sh_degree=SH_DEGREE, max_instances=MAX_INSTANCES)
+            height=HEIGHT, sh_degree=SH_DEGREE, max_instances=MAX_INSTANCES,
+            steps=None)
         img = torch.clamp(out.render, 0.0, 1.0).permute(1, 2, 0).cpu()
         views.append((f"view_{k:02d}.png", cam.R.T, cam.T,
                       (img.numpy() * 255).astype(np.uint8)))
@@ -1468,13 +1571,15 @@ def cli_phase(arrays, tmp):
               f"views rendered again at a tier that holds them: "
               f"{rerenders}")
 
-        # test view 0: the PNG is the truncated eval_render of the PLY, bit
-        # for bit, and B3 on that frame is its plain version's bits
+        # test view 0: the PNG is the truncated compiled eval_render of the
+        # PLY, which equals the eager one bit for bit, and B3 on that frame
+        # is its plain version's bits
         tier = max(8 * state.n_alive, 262_144)
         cam_in = test_cam.render_inputs(DEV)
         frame, second = trainer_mod.render_whole(
             state, cam_in, bg, LOW_PASS, width=WIDTH, height=HEIGHT,
-            sh_degree=SH_DEGREE, max_instances=tier)
+            sh_degree=SH_DEGREE, max_instances=tier,
+            steps=compiled.CompiledStep())
         used = second or tier
         seen = {}
         again_frame = step.eval_render(
@@ -2497,6 +2602,93 @@ E2E_TPU_LOG = {"growths": [[512, 4096, 287], [4096, 8192, 2685]],
                "final_alive": 3847, "final_psnr": 54.89}
 E2E_CPU_LOG = {"growths": [[512, 4096, 315]], "final_alive": 1901,
                "final_psnr": 54.60}
+E2E_CUT = 600      # the compiled run held to the eager one: past the growth
+
+
+def trainer_step_paths(tr):
+    """A step of Trainer ``tr`` at its state, on its first training camera
+    and as its _dispatch queues one (every per-call value a 0-d device
+    tensor; SH degree 3), through its CompiledStep and through the eager
+    step, each called once (the compiled one's key captured): {"eager":
+    fn, "compiled": fn}."""
+    cam = tr.scene.train_cameras[0]
+    cam_in, gt = tr._camera_bundle(cam)
+
+    def f32(v):
+        return torch.full((), v, dtype=torch.float32, device=DEV)
+
+    args = (tr.state._replace(n_alive=torch.full(
+        (), tr.state.n_alive, dtype=torch.int32, device=DEV)),
+        tr.opt_state, cam_in, gt, tr.background, f32(tr.low_pass),
+        f32(XYZ_LR))
+    kw = dict(width=cam.width, height=cam.height,
+              sh_degree=tr.model.sh_degree, max_instances=tr.max_instances,
+              lambda_dssim=tr.opt_cfg.lambda_dssim,
+              opt_cfg_leaves={k: f32(v) for k, v in OPT_LEAVES.items()})
+    paths = {"eager": lambda: step.train_step(*args, **kw),
+             "compiled": lambda: tr._steps.train_step(*args, **kw)}
+    for fn in paths.values():
+        fn()
+    return paths
+
+
+def path_record(paths):
+    """Per path: path_times, device_profile and memory_of (three calls)."""
+    rec = path_times(paths)
+    for name, fn in paths.items():
+        rec[name].update(device_profile(fn))
+        rec[name]["peak_mib"], rec[name]["reserved_mib"] = memory_of(
+            lambda: [fn() for _ in range(3)])
+    return rec
+
+
+def e2e_compiled_vs_eager(scene):
+    """The long run's first E2E_CUT iterations (its 2,500-iteration
+    schedule, past the first capacity growth at 500) through the compiled
+    step and through the eager one (CompiledStep's methods replaced): the
+    same steps, capacity events, reports and state, bit for bit. Returns
+    each run's host ms per iteration, peak MiB and the compiled run's
+    captures."""
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        for name in ("compiled", "eager"):
+            with recorded(eager=name == "eager") as trace:
+                r = e2e_long.run(scene, str(Path(tmp) / name), stop=E2E_CUT,
+                                 device=DEV, log=lambda *a: None)
+            t = r.pop("trainer")
+            runs[name] = (r, loop_summary(trace)["steps"],
+                          host_snapshot(t.state, t.opt_state),
+                          [[list(k), ms] for k, ms in t._steps.captures])
+            if name == "compiled":
+                at_cut = path_record(trainer_step_paths(t))
+            del t
+    (rc, sc, hc, cc), (re_, se, he, ce) = runs["compiled"], runs["eager"]
+    if sc != se or rc["report0"] != re_["report0"] or \
+            rc["final"] != re_["final"] or ce or not cc or \
+            [e["line"] for e in rc["cap_events"]] != \
+            [e["line"] for e in re_["cap_events"]] or \
+            not same_bits(hc, he):
+        raise AssertionError(f"e2e: the compiled run to {E2E_CUT} differs "
+                             f"from the eager one")
+    out = {"iterations": E2E_CUT, "steps": len(sc),
+           "host_ms_per_iteration_compiled": rc["host_ms_per_iteration"],
+           "host_ms_per_iteration_eager": re_["host_ms_per_iteration"],
+           "peak_mib_compiled": rc["peak_mib"],
+           "peak_mib_eager": re_["peak_mib"], "captures": cc,
+           "step_at_cut": at_cut}
+    print(f"e2e: to {E2E_CUT} through the compiled step and the eager one: "
+          f"{len(sc)} steps, capacity events, reports and state bit for "
+          f"bit; host ms per iteration {rc['host_ms_per_iteration']:.3f} "
+          f"against {re_['host_ms_per_iteration']:.3f}; peak "
+          f"{rc['peak_mib']:.0f} and {re_['peak_mib']:.0f} MiB; "
+          f"{len(cc)} captures (key, ms) {cc}")
+    for name, r in at_cut.items():
+        print(f"e2e: a step at {E2E_CUT}, {name}: host "
+              f"{r['host_ms']['median']:.3f} ms ({r['queued_ms']:.3f} "
+              f"queued), device busy {r['busy_ms']:.3f} ms "
+              f"({r['launches']:.0f} operations), host launches "
+              f"{r['host_launches']:.0f}, peak {r['peak_mib']:.1f} MiB")
+    return out
 
 
 def end_state_syncs(tr):
@@ -2587,6 +2779,8 @@ def e2e_phase(kernels):
         raise AssertionError(f"train_step waits for the card: {syncs}")
     for k in kernels:
         k["launches_e2e"] = launches[k["name"]]
+    rec["compiled_vs_eager"] = e2e_compiled_vs_eager(tr.scene)
+    rec["captures"] = [[list(k), ms] for k, ms in tr._steps.captures]
     summary = {f: rec[f] for f in (
         "n_alive", "capacity", "tier", "wall_s", "host_ms_per_iteration",
         "peak_mib", "scene_s")}
@@ -2743,6 +2937,188 @@ def tools_phase():
           f"{ms['card']:.1f} (first call) and {ms['card_again']:.1f}, cpu "
           f"{ms['cpu']:.1f} ({nvidia_smi()})")
     rec.update(cli_ms_per_frame=ms, phase_s=time.perf_counter() - t_phase)
+    return rec
+
+
+# --- 15. the compiled step ----------------------------------------------
+COMPILED_REPS = 10          # host-clock calls per path and turn
+
+
+def memory_of(run):
+    """(peak MiB allocated above what was held, MiB reserved above what
+    was reserved) over ``run()``."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held, reserved = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    out = run()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    more = (torch.cuda.memory_reserved() - reserved) / 2**20
+    del out
+    return peak, more
+
+
+def path_times(paths):
+    """Host ms per call of each path (name: fn), each call ending in a
+    synchronize, in turns a, b, b, a; and ms per call of 10 calls queued
+    back to back, then one synchronize (a Trainer's pipelined loop). The
+    medians of each path's calls."""
+    times = {k: [] for k in paths}
+    queued = {k: [] for k in paths}
+    names = list(paths)
+    for name in names + names[::-1]:
+        times[name] += host_ms(paths[name], COMPILED_REPS)[3]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(COMPILED_REPS):
+            paths[name]()
+        torch.cuda.synchronize()
+        queued[name].append((time.perf_counter() - t) * 1e3 / COMPILED_REPS)
+    return {k: {"host_ms": quartiles(times[k]),
+                "queued_ms": float(np.median(queued[k]))} for k in paths}
+
+
+def equal_bits(a, b):
+    """Tensors equal bit for bit (floats through their bits: signed zeros
+    and NaNs included)."""
+    return bitwise_equal(a, b) if a.is_floating_point() else \
+        torch.equal(a, b)
+
+
+def compiled_phase(kernels):
+    """Phase 15: the compiled step (train.compiled) on the 262k proxy,
+    held to the eager step bit for bit: the 5 poses rendered (each frame
+    another camera, low_pass, scale_modifier and n_alive than the capture's
+    frame 0) and 5 chained training steps from phase 4's perturbed state
+    (another camera, ground truth, low_pass, xyz_lr and n_alive each), the
+    launch counters counting each compiled call once; a replayed step and
+    frame make no synchronising call. Recorded per path (eager, compiled):
+    host ms per step and per frame (each call synchronised, and 10 queued
+    calls), the device's busy time, device operations and host launches
+    per call (torch.profiler), peak and reserved MiB over a first call and
+    two more, and the captures (key, ms). Adds the launches to
+    ``kernels``. Returns the phase's record."""
+    arrays = garden_proxy_state_arrays()
+    truth = gmod.from_arrays(**arrays, device=DEV)
+    state = gmod.from_arrays(**perturbed(arrays), device=DEV)
+    del arrays
+    cams = [pose(k).render_inputs(DEV) for k in range(N_POSES)]
+    bg = torch.tensor(BG, device=DEV)
+    kw = dict(width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+              max_instances=MAX_INSTANCES)
+    gts = [step.eval_render(truth, c, bg, LOW_PASS, **kw).render
+           for c in cams]
+    del truth
+
+    def f32(v):
+        return torch.full((), v, dtype=torch.float32, device=DEV)
+
+    def alive(k):
+        return torch.full((), N_GAUSS - 997 * k, dtype=torch.int32,
+                          device=DEV)
+
+    leaves = {k: f32(v) for k, v in OPT_LEAVES.items()}
+    steps = compiled.CompiledStep()
+    torch.cuda.synchronize()
+    reset_counts()
+    frames = []
+    for k in range(N_POSES):
+        args = (state._replace(n_alive=alive(k)), cams[k], bg,
+                f32(LOW_PASS + 0.01 * k), f32(1.0 - 0.02 * k))
+        counts = read_counts()
+        got = steps.eval_render(*args, **kw)
+        after = read_counts()
+        want = step.eval_render(*args, **kw)
+        set_counts(after)
+        if not all(equal_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"compiled eval_render differs from the "
+                                 f"eager one at pose {k}")
+        frames.append(int(got.num_instances))
+        if {n: after[n] - counts[n] for n in counts} != {
+                "expand_instances": 1, "composite_forward": 1,
+                "composite_backward": 0, "reduce_instances": 0}:
+            raise AssertionError(f"compiled frame {k}: launches {after}")
+    s, o = state, adam_mod.init(state.params)
+    losses = []
+    for k in range(N_POSES):
+        args = (s._replace(n_alive=alive(k)), o, cams[k], gts[k], bg,
+                f32(LOW_PASS + 0.01 * k), f32(XYZ_LR * (1.0 - 0.1 * k)))
+        tkw = dict(kw, opt_cfg_leaves=leaves)
+        counts = read_counts()
+        got = steps.train_step(*args, **tkw)
+        after = read_counts()
+        want = step.train_step(*args, **tkw)
+        set_counts(after)
+        flat = [snapshot(*r[:2]) for r in (got, want)]
+        if not same_bits(*flat) or not all(equal_bits(
+                getattr(got[2], f), getattr(want[2], f)) for f in (
+                "loss", "l1", "num_instances", "instance_overflow")):
+            raise AssertionError(f"compiled train_step differs from the "
+                                 f"eager one at step {k}")
+        if any(after[n] - counts[n] != 1 for n in counts):
+            raise AssertionError(f"compiled step {k}: launches {after}")
+        losses.append(float(got[2].loss))
+        s, o = got[0], got[1]
+    launches = read_counts()
+    print(f"compiled: {N_POSES} frames and {N_POSES} chained steps equal "
+          f"the eager ones bit for bit (losses {losses}, frame instances "
+          f"{frames}); launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"compiled: losses {losses}")
+
+    # the replays' synchronising calls (both keys are captured by now)
+    step_args = (s._replace(n_alive=alive(1)), o, cams[1], gts[1], bg,
+                 f32(LOW_PASS), f32(XYZ_LR))
+    frame_args = (state._replace(n_alive=alive(0)), cams[1], bg,
+                  f32(LOW_PASS), f32(1.0))
+    tkw = dict(kw, opt_cfg_leaves=leaves)
+    syncs = {"train_step": count_syncs(
+        lambda: steps.train_step(*step_args, **tkw)),
+             "eval_render": count_syncs(
+        lambda: steps.eval_render(*frame_args, **kw))}
+    print(f"compiled: synchronising calls per replay {json.dumps(syncs)}")
+    if any(n for n, _ in syncs.values()):
+        raise AssertionError(f"a replay waits for the card: {syncs}")
+
+    paths = {"eager": lambda: step.train_step(*step_args, **tkw),
+             "compiled": lambda: steps.train_step(*step_args, **tkw)}
+    frame_paths = {
+        "eager": lambda: step.eval_render(*frame_args, **kw),
+        "compiled": lambda: steps.eval_render(*frame_args, **kw)}
+    rec = {"losses": losses, "frame_instances": frames,
+           "launches": launches, "syncs": {k: v[0] for k, v in
+                                           syncs.items()},
+           "step": path_record(paths), "frame": path_record(frame_paths)}
+    for what, ps in (("step", paths), ("frame", frame_paths)):
+        for name, fn in ps.items():
+            rec[what][name]["event_ms"] = device_ms(fn, reps=10)
+    # memory of the compiled path from a fresh CompiledStep: a first call
+    # (the capture's) and two more
+    for what, make in (
+            ("step", lambda c: c.train_step(*step_args, **tkw)),
+            ("frame", lambda c: c.eval_render(*frame_args, **kw))):
+        fresh = compiled.CompiledStep()
+        rec[what]["compiled"]["peak_mib"], \
+            rec[what]["compiled"]["reserved_mib"] = memory_of(
+                lambda: [make(fresh) for _ in range(3)])
+        rec[what]["compiled"]["capture_ms"] = fresh.captures[0][1]
+        del fresh
+    rec["captures"] = [[list(k), ms] for k, ms in steps.captures]
+    for what in ("step", "frame"):
+        for name in ("eager", "compiled"):
+            r = rec[what][name]
+            print(f"compiled: {what} {name}: host {r['host_ms']['median']:.3f}"
+                  f" ms ({r['queued_ms']:.3f} queued), device busy "
+                  f"{r['busy_ms']:.3f} ms ({r['launches']:.0f} operations, "
+                  f"events "
+                  f"{r['event_ms']:.3f} ms), host launches "
+                  f"{r['host_launches']:.0f}, peak {r['peak_mib']:.0f} MiB "
+                  f"(reserved {r['reserved_mib']:.0f})")
+    print(f"compiled: captures (key, ms) {rec['captures']} ({nvidia_smi()})")
+    for k in kernels:
+        k["launches_compiled"] = launches[k["name"]]
     return rec
 
 
@@ -3027,6 +3403,9 @@ def main(out: Path | None = None):
     e2e_rec = e2e_phase(kernels)
     # --- 14. the part-mask overlays -----------------------------------------
     tools_rec = tools_phase()
+    # --- 15. the compiled step ----------------------------------------------
+    torch.cuda.empty_cache()
+    compiled_rec = compiled_phase(kernels)
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
@@ -3076,6 +3455,7 @@ def main(out: Path | None = None):
         "scale": scale_rec,
         "e2e": e2e_rec,
         "tools": tools_rec,
+        "compiled": compiled_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:

@@ -18,3 +18,12 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
             "rain_tpu_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def scalar(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d ``dtype`` tensor. A tensor is converted where it
+    lies; a Python number is filled on ``device``: a fill is a launch,
+    where a copy from host memory would wait for the device."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype)
+    return torch.full((), value, dtype=dtype, device=device)

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model.gaussians import (GaussianParams, GaussianState,
                                             STAT_FIELDS, alive_mask,
@@ -65,15 +66,14 @@ def add_densification_stats(state: GaussianState, tap_grad: torch.Tensor,
 
     ``tap_grad`` [C, 2] is the pixel-unit xy gradient; the reference
     accumulates the NDC-scaled one (backward.cu:450-451), so it is scaled by
-    (W/2, H/2) of the TRUE image size. ``radii`` [C] int32 marks the
-    visible Gaussians (radii > 0).
+    (W/2, H/2) of the TRUE image size, given as ints or 0-d device tensors.
+    ``radii`` [C] int32 marks the visible Gaussians (radii > 0).
     """
     vis = radii > 0
-    # two fills, not a copy of host values (torch.tensor, or assigning a
-    # Python number to an element), which would wait for the device
-    scale = torch.full((2,), 0.5 * width, dtype=torch.float32,
-                       device=tap_grad.device)
-    scale[1:].fill_(0.5 * height)
+    dev = tap_grad.device
+    # exact in f32: the sizes are integers below 2^24
+    scale = torch.stack([device_mod.scalar(width, torch.float32, dev),
+                         device_mod.scalar(height, torch.float32, dev)]) * 0.5
     s = tap_grad * scale[None, :]
     g = torch.sqrt(torch.sum(s * s, dim=-1))
     return state._replace(

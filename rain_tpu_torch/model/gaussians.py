@@ -43,7 +43,7 @@ class GaussianParams(NamedTuple):
 
 class GaussianState(NamedTuple):
     params: GaussianParams
-    n_alive: int
+    n_alive: int    # or a 0-d int32 device tensor: the compiled step's input
     max_radii2d: torch.Tensor         # [C] f32
     xyz_gradient_accum: torch.Tensor  # [C] f32
     denom: torch.Tensor               # [C] f32

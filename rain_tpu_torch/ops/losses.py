@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rain_tpu_torch import device as device_mod
+
 
 def l1_loss(x, y):
     return torch.abs(x - y).mean()
@@ -104,15 +106,16 @@ def training_loss(image, gt, lambda_dssim: float = 0.2):
     return loss, ll1
 
 
-def masked_training_loss(image, gt, real_w: int, real_h: int,
+def masked_training_loss(image, gt, real_w, real_h,
                          lambda_dssim: float = 0.2):
     """The training loss of a tile-padded render target.
 
     image/gt are [3, BH, BW] with the live image in the top-left
-    (real_h, real_w) region; gt must be zero beyond it. Both inputs are
-    zeroed outside the region, which reproduces the SSIM blur's zero
-    padding at the real image's border, and the means divide by the real
-    pixel count, so the result equals
+    (real_h, real_w) region; gt must be zero beyond it. real_w and real_h
+    are ints or 0-d int32 device tensors (rain_tpu's traced sizes). Both
+    inputs are zeroed outside the region, which reproduces the SSIM blur's
+    zero padding at the real image's border, and the means divide by the
+    real pixel count, so the result equals
     ``training_loss(image[:, :h, :w], gt[:, :h, :w])``. Returns (loss, l1).
     """
     bh, bw = image.shape[-2], image.shape[-1]
@@ -121,13 +124,11 @@ def masked_training_loss(image, gt, real_w: int, real_h: int,
             (torch.arange(bw, device=dev) < real_w)[None, :])
     img = image * mask[None]
     gt = gt * mask[None]
-    # 3·h·w rounded as the f32 products 3·h, then ·w, made on the host and
-    # filled on the device: a copy from host memory would wait for it. The
+    # 3·h·w rounded as the f32 products 3·h, then ·w, on the device. The
     # divisor stays a device tensor: a CUDA tensor divided by a host scalar
     # is multiplied by its reciprocal, which can round another way
-    n_pix = torch.full((), float(np.float32(3.0) * np.float32(real_h) *
-                                 np.float32(real_w)),
-                       dtype=torch.float32, device=dev)
+    n_pix = (3.0 * device_mod.scalar(real_h, torch.float32, dev)) * \
+        device_mod.scalar(real_w, torch.float32, dev)
     ll1 = torch.sum(torch.abs(img - gt)) / n_pix
     # pad pixels have ssim_map == 1 (0/0 regularised): mask before the sum
     sm = ssim_map(img, gt)[0]

@@ -145,9 +145,9 @@ def preprocess(means3d: torch.Tensor,
                full_proj: torch.Tensor,
                camera_center: torch.Tensor,
                tan_fovx, tan_fovy,
-               width: int, height: int,
+               width, height,
                low_pass=0.3,
-               scale_modifier: float = 1.0,
+               scale_modifier=1.0,
                grid: tuple[int, int] | None = None,
                colors_override: torch.Tensor | None = None,
                cov3d_override: torch.Tensor | None = None,
@@ -160,7 +160,9 @@ def preprocess(means3d: torch.Tensor,
       opacities: [N] (post-sigmoid); shs: [N, K, 3]; alive: [N] bool mask
         for live capacity slots (dead slots are culled).
       sh_degree: active SH degree.
-      width/height: image size in pixels (focal lengths, NDC → pixels).
+      width/height: image size in pixels (focal lengths, NDC → pixels):
+        ints, or 0-d device tensors (a bucketed step's true size).
+      low_pass, scale_modifier: numbers or 0-d f32 device tensors.
       grid: (grid_x, grid_y), the tile grid the rects are clamped to; by
         default the image's own. A bucketed render passes the bucket's grid
         (ops.render ``render_wh``).
@@ -178,8 +180,10 @@ def preprocess(means3d: torch.Tensor,
     if grid is None:
         grid = ((width + TILE - 1) // TILE, (height + TILE - 1) // TILE)
     grid_x, grid_y = grid
-    focal_x = width / (2.0 * tan_fovx)
-    focal_y = height / (2.0 * tan_fovy)
+    # the size times the reciprocal, as torch takes a number over a tensor,
+    # so that an int and a 0-d device tensor give the same bits
+    focal_x = torch.reciprocal(2.0 * tan_fovx) * width
+    focal_y = torch.reciprocal(2.0 * tan_fovy) * height
 
     p_h = torch.cat([means3d, torch.ones_like(means3d[:, :1])], dim=-1)
     p_view = p_h @ world_view[:3, :].T                        # [N, 3]

@@ -174,13 +174,13 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
            sh_degree: int,
            bg: torch.Tensor,
            low_pass=0.3,
-           scale_modifier: float = 1.0,
+           scale_modifier=1.0,
            max_instances: int,
            xy_tap: torch.Tensor | None = None,
            colors_override: torch.Tensor | None = None,
            cov3d_override: torch.Tensor | None = None,
            need_depth: bool = True,
-           render_wh: tuple[int, int] | None = None,
+           render_wh: tuple | None = None,
            on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
            expand: str = "fused", reduce: str = "kernel") -> RenderOutput:
     """Render one view from post-activation inputs (see model.gaussians).
@@ -190,10 +190,12 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
     colors_override, cov3d_override: optional [N, 3] colours and [N, 6]
       3D covariances in place of the computed ones (ops.projection).
     need_depth=False (training steps) returns a zero depth channel.
-    render_wh: optional (w, h) true image size. width/height are then the
-      tile-aligned bucket that sets the tile grid and the output's shape,
-      and the true size sets the focal lengths and NDC → pixel scaling;
-      pixels beyond it are dead ones the caller masks.
+    render_wh: optional (w, h) true image size, ints or 0-d int32 device
+      tensors. width/height are then the tile-aligned bucket that sets the
+      tile grid and the output's shape, and the true size sets the focal
+      lengths and NDC → pixel scaling; pixels beyond it are dead ones the
+      caller masks.
+    low_pass, scale_modifier: numbers or 0-d f32 device tensors.
     on_stage(name, value) is called after each of STAGES (LEGACY_STAGES
       with expand="legacy") with its result, and after each of
       BACKWARD_STAGES in a backward through the render.

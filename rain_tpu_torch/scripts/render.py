@@ -25,6 +25,7 @@ import torch
 from rain_tpu_torch import config as cfg_mod
 from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.data import images
+from rain_tpu_torch.train import compiled
 from rain_tpu_torch.train.trainer import render_whole
 
 
@@ -55,9 +56,11 @@ def _inferno(x):
 
 
 def render_set(model_path, name, iteration, cameras, state, cfgs,
-               max_instances, device):
-    """Render and save ``cameras``; returns [(view, tier, re-render tier)]
-    of the views rendered again."""
+               max_instances, device, steps):
+    """Render and save ``cameras`` through ``steps`` (a
+    train.compiled.CompiledStep: one graph per view size and tier on the
+    card); returns [(view, tier, re-render tier)] of the views rendered
+    again."""
     base = Path(model_path) / name / f"ours_{iteration}"
     bg = torch.tensor([1.0, 1.0, 1.0] if cfgs["model"].white_background
                       else [0.0, 0.0, 0.0], dtype=torch.float32,
@@ -67,7 +70,7 @@ def render_set(model_path, name, iteration, cameras, state, cfgs,
         out, again = render_whole(
             state, cam.render_inputs(device), bg, 0.3, width=cam.width,
             height=cam.height, sh_degree=cfgs["model"].sh_degree,
-            max_instances=max_instances)
+            max_instances=max_instances, steps=steps)
         if again is not None:
             rerenders.append((f"{name}/{idx:05d}", max_instances, again))
             print(f"[render] {name} view {idx:05d}: "
@@ -130,14 +133,15 @@ def main(argv=None):
     max_instances = max(state.n_alive * 8, 262144)
 
     rerenders = []
+    steps = compiled.CompiledStep()
     if not args.skip_train:
         rerenders += render_set(args.model_path, "train", iteration,
                                 scene.train_cameras, state, cfgs,
-                                max_instances, device)
+                                max_instances, device, steps)
     if not args.skip_test:
         rerenders += render_set(args.model_path, "test", iteration,
                                 scene.test_cameras, state, cfgs,
-                                max_instances, device)
+                                max_instances, device, steps)
     return rerenders
 
 

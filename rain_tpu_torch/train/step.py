@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
@@ -34,7 +35,7 @@ class StepAux(NamedTuple):
     l1: torch.Tensor              # 0-d f32
     num_instances: torch.Tensor   # 0-d int64 (may exceed max_instances)
     instance_overflow: torch.Tensor  # 0-d bool
-    n_alive: int
+    n_alive: int                  # the input state's (int or 0-d tensor)
 
 
 def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
@@ -42,11 +43,10 @@ def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
     """The step's Adam update (``adam.update``) at the step's learning
     rates; returns (params, AdamState)."""
     # f32 learning rates, as the JAX step's traced leaves: features_rest's
-    # is feature_lr / 20 in f32. Each is a device fill, which rounds the
-    # float to f32 as torch.tensor(v, dtype=float32) does but, unlike a
-    # copy from pageable host memory, does not wait for the device
+    # is feature_lr / 20 in f32. A float is filled on the device, which
+    # rounds it to f32 as torch.tensor(v, dtype=float32) does
     dev = params.xyz.device
-    lr = {k: torch.full((), v, dtype=torch.float32, device=dev)
+    lr = {k: device_mod.scalar(v, torch.float32, dev)
           for k, v in opt_cfg_leaves.items()}
     lrs = gmod.GaussianParams(
         xyz=xyz_lr,
@@ -65,12 +65,17 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
                width: int, height: int, sh_degree: int, max_instances: int,
                opt_cfg_leaves: dict, lambda_dssim: float = 0.2,
                update_densify_stats: bool = True,
-               real_wh: tuple[int, int] | None = None,
+               real_wh: tuple | None = None,
                on_stage: binning_ops.StageHook = binning_ops.no_stage_hook):
     """One optimisation step on one camera; runs on the device of ``state``.
 
-    opt_cfg_leaves: feature_lr, opacity_lr, scaling_lr and rotation_lr as
-      floats; ``xyz_lr`` is the scheduled position lr (float or 0-d f32).
+    Every value that changes from call to call may be a 0-d device tensor,
+    as rain_tpu traces it: ``low_pass`` and ``xyz_lr`` (f32), the four
+    ``opt_cfg_leaves`` (feature_lr, opacity_lr, scaling_lr, rotation_lr;
+    f32), ``real_wh`` (int32) and ``state.n_alive`` (int32); each may also
+    be a Python number. The keywords width, height, sh_degree,
+    max_instances, lambda_dssim and update_densify_stats are static: they
+    set the shapes and the work (train.compiled keys its graphs by them).
     real_wh: optional (w, h) true image size. width/height are then the
       tile-aligned bucket, gt_image is zero-padded to it, and the loss is
       masked to the true size.
@@ -133,8 +138,9 @@ def eval_render(state: gmod.GaussianState, camera: dict, bg: torch.Tensor,
     """Non-training render; scale_modifier is the viewer's Gaussian-size
     slider (reference gaussian_renderer/__init__.py:29, applied to the
     activated scales before covariance construction). Runs on the device
-    of ``state``. on_stage(name, value) is called after each of
-    ops.render.STAGES with its result."""
+    of ``state``. ``low_pass``, ``scale_modifier`` and ``state.n_alive``
+    may be 0-d device tensors, as in ``train_step``. on_stage(name, value)
+    is called after each of ops.render.STAGES with its result."""
     scales, quats, opac, shs = gmod.activate(state.params)
     return render_ops.render(
         state.params.xyz, scales, quats, opac, shs, gmod.alive_mask(state),

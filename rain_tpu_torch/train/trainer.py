@@ -56,6 +56,7 @@ from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.parallel import distributed
 from rain_tpu_torch.parallel import sharding
 from rain_tpu_torch.train import checkpoint as ckpt
+from rain_tpu_torch.train import compiled
 from rain_tpu_torch.train import schedules
 from rain_tpu_torch.train import step as step_mod
 
@@ -94,15 +95,22 @@ def _fitting_tier(m: int, needed: int) -> int:
 
 @torch.no_grad()
 def render_whole(state, camera, bg, low_pass, scale_modifier=1.0, *,
-                 width: int, height: int, sh_degree: int, max_instances: int):
-    """eval_render of a view, never truncated: rendered at
-    ``max_instances`` and, if that overflows, again at the first ladder
-    tier that holds the view's instances (rain_tpu shows, scores and saves
-    the truncated image: rain_tpu/train/trainer.py:606-616,648-653,
-    rain_tpu/scripts/render.py:110). Returns (output, the tier of the
-    second render or None)."""
+                 width: int, height: int, sh_degree: int, max_instances: int,
+                 steps: compiled.CompiledStep | None):
+    """eval_render of a view through ``steps``, a CompiledStep (None: the
+    eager ``step.eval_render``, as the sharded Trainer renders), never
+    truncated: rendered at ``max_instances`` and, if that overflows, again
+    at the first ladder tier that holds the view's instances (rain_tpu
+    shows, scores and saves the truncated image:
+    rain_tpu/train/trainer.py:606-616,648-653,
+    rain_tpu/scripts/render.py:110). The overflow flag is read after the
+    first render. Returns (output, the tier of the second render or
+    None)."""
+    eval_render = step_mod.eval_render if steps is None else \
+        steps.eval_render
+
     def render(tier):
-        return step_mod.eval_render(
+        return eval_render(
             state, camera, bg, low_pass, scale_modifier, width=width,
             height=height, sh_degree=sh_degree, max_instances=tier)
 
@@ -242,6 +250,12 @@ class Trainer:
         # The sharded step keeps exact sizes, as rain_tpu's
         sizes = {(c.width, c.height) for c in scene.train_cameras}
         self._bucketed = len(sizes) > 1 and not self._sharded
+        # the single-device step and its renders go through one
+        # CompiledStep (one graph per key on the card, the eager step on
+        # the CPU); its keys are rain_tpu's jit keys (``_step_keys``). The
+        # sharded step and its rank 0's renders stay eager
+        self._steps = None if self._sharded else compiled.CompiledStep()
+        self._opt_leaves = None     # the lrs as 0-d device tensors
 
         self.iteration = 0
         self.low_pass = 0.3
@@ -266,6 +280,13 @@ class Trainer:
     @property
     def _sharded(self) -> bool:
         return self.n_devices > 1
+
+    @property
+    def _step_keys(self) -> set:
+        """The keys of the single-device steps run, rain_tpu's
+        ``_bucket_keys`` (one compilation each): ``compiled.train_key``'s,
+        on the CPU and on the card alike (none in a sharded run)."""
+        return set() if self._steps is None else self._steps.train_keys
 
     def _capacity(self, cap: int) -> int:
         """``cap`` rounded up to a multiple of the ranks (the sharded step
@@ -380,20 +401,35 @@ class Trainer:
             state, opt, aux = step(self.state, self.opt_state, cam_arrays,
                                    gt, bg, low_pass, xyz_lr, opt_leaves)
             return state, opt, _Flags(aux)
+        # every per-call value a 0-d device tensor, as rain_tpu traces it
+        # (rain_tpu/train/trainer.py:292-306): fills, which do not wait
+        # for the device
+        f32, i32 = torch.float32, torch.int32
+        if self._opt_leaves is None:
+            self._opt_leaves = {k: device_mod.scalar(v, f32, self.device)
+                                for k, v in opt_leaves.items()}
         if self._bucketed:
             width = _round_up(cam.width, 16)
             height = _round_up(cam.height, 16)
-            real_wh = (cam.width, cam.height)
+            real_wh = (device_mod.scalar(cam.width, i32, self.device),
+                       device_mod.scalar(cam.height, i32, self.device))
         else:
             width, height = cam.width, cam.height
             real_wh = None
-        state, opt, aux = step_mod.train_step(
-            self.state, self.opt_state, cam_arrays, gt, bg, low_pass, xyz_lr,
+        n_alive = self.state.n_alive
+        self._steps.retire(self.state.capacity, self.max_instances)
+        state, opt, aux = self._steps.train_step(
+            self.state._replace(
+                n_alive=device_mod.scalar(n_alive, i32, self.device)),
+            self.opt_state, cam_arrays, gt, bg,
+            device_mod.scalar(low_pass, f32, self.device),
+            device_mod.scalar(xyz_lr, f32, self.device),
             width=width, height=height, sh_degree=sh_deg,
-            max_instances=self.max_instances, opt_cfg_leaves=opt_leaves,
+            max_instances=self.max_instances,
+            opt_cfg_leaves=self._opt_leaves,
             lambda_dssim=self.opt_cfg.lambda_dssim,
             update_densify_stats=update_stats, real_wh=real_wh)
-        return state, opt, _Flags(aux)
+        return state._replace(n_alive=n_alive), opt, _Flags(aux)
 
     def _enqueue_step(self, args):
         """Pipelined step: queue this iteration's step, then verify the
@@ -699,7 +735,8 @@ class Trainer:
             self.state if state is None else state, cam_arrays,
             self.background, self.low_pass,
             scale_modifier, width=width, height=height,
-            sh_degree=self.model.sh_degree, max_instances=self.max_instances)
+            sh_degree=self.model.sh_degree, max_instances=self.max_instances,
+            steps=self._steps)
         if again is not None:
             self.log(f"{what}: {int(out.num_instances)} instances overflow "
                      f"the tier {self.max_instances}; rendered again at "

@@ -17,6 +17,7 @@ from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.scripts import knn_deviation, probe_scale
+from rain_tpu_torch.train import compiled
 from rain_tpu_torch.train import step
 from torch_expand_cases import CASES, expand_case
 from torch_reduce_cases import CASES as REDUCE_CASES
@@ -551,3 +552,233 @@ def test_e2e_long_run_on_card_passes_the_tests_assertions(cuda, tmp_path):
     assert not any(rec["gt_overflow"])
     off = e2e_long.units_off(rec["report0"])
     assert max(max(v) for v in off.values()) <= 1, (off, rec["report0"])
+
+
+# --- the compiled step (train.compiled): CUDA graphs per key ---------------
+
+def _launches():
+    return [f.launches for f in compiled.COUNTED]
+
+
+def _step_inputs(device, k, bucketed):
+    """Step k's inputs, unlike step 0's (the capture's): another camera,
+    n_alive, low_pass, xyz_lr, background and, bucketed, true size."""
+    rng = np.random.default_rng(10 + k)
+    ang = 0.03 * k
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                  [-np.sin(ang), 0, np.cos(ang)]])
+    cam = Camera(uid=k, image_name="t", R=R, T=np.array([0.05 * k, 0, 0]),
+                 fovx=1.0, fovy=0.7, image=None, width=W,
+                 height=H).render_inputs(device)
+    gt = torch.from_numpy(rng.uniform(0, 1, (3, H, W)).astype(
+        np.float32)).to(device)
+    real_wh = None
+    if bucketed:
+        w, h = W - 3 * k, H - 2 * k - 1        # all in the bucket W x H
+        gt[:, h:] = 0.0
+        gt[:, :, w:] = 0.0
+        real_wh = tuple(torch.full((), v, dtype=torch.int32, device=device)
+                        for v in (w, h))
+
+    def f32(v):
+        return torch.full((), v, dtype=torch.float32, device=device)
+
+    return dict(camera=cam, gt=gt,
+                bg=torch.from_numpy(rng.uniform(0, 1, 3).astype(
+                    np.float32)).to(device),
+                low_pass=f32(0.3 + 0.05 * k), xyz_lr=f32(1.6e-4 / (1 + k)),
+                n_alive=torch.full((), 2000 - 37 * k, dtype=torch.int32,
+                                   device=device),
+                real_wh=real_wh)
+
+
+def _tensors(out):
+    state, opt, aux = out
+    return (list(state.params) + [getattr(state, k) for k in
+                                  gmod.STAT_FIELDS] +
+            list(opt.mu) + list(opt.nu) +
+            [opt.step, aux.loss, aux.l1, aux.num_instances,
+             aux.instance_overflow])
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
+    """Six chained steps, the first captured: every replay on inputs
+    unlike the capture's equals the eager train_step fed the same tensors,
+    bit for bit; the inputs are left untouched; B1-B4's counters count
+    one launch per call, replays included."""
+    steps = compiled.CompiledStep()
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    leaves = {k: torch.full((), v, device=cuda) for k, v in OPT.items()}
+    for k in range(6):
+        x = _step_inputs(cuda, k, bucketed)
+        st = state._replace(n_alive=x["n_alive"])
+        args = (st, opt, x["camera"], x["gt"], x["bg"], x["low_pass"],
+                x["xyz_lr"])
+        kw = dict(width=W, height=H, sh_degree=3, max_instances=M,
+                  opt_cfg_leaves=leaves, real_wh=x["real_wh"],
+                  update_densify_stats=k != 3)
+        given = (list(st.params) + [getattr(st, f) for f in
+                                    gmod.STAT_FIELDS] +
+                 list(opt.mu) + list(opt.nu) + [opt.step] +
+                 list(x["camera"].values()) +
+                 [x[f] for f in ("gt", "bg", "low_pass", "xyz_lr",
+                                 "n_alive")])
+        before = [t.clone() for t in given]
+        want = step.train_step(*args, **kw)
+        n0 = _launches()
+        got = steps.train_step(*args, **kw)
+        assert [b - a for a, b in zip(n0, _launches())] == [1, 1, 1, 1]
+        for a, b in zip(_tensors(got), _tensors(want)):
+            assert torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(before, given))
+        assert got[0].n_alive is x["n_alive"]
+        state, opt = got[0], got[1]
+    # update_densify_stats False at step 3 is its own key
+    assert len(steps.captures) == 2 and len(steps.graphs) == 2
+    assert float(got[2].loss) > 0.0 and not bool(got[2].instance_overflow)
+
+
+def test_compiled_eval_render_replays_equal_eager(cuda):
+    """Five frames through one graph: another camera, n_alive, low_pass,
+    background and scale_modifier each time; each equals the eager
+    eval_render bit for bit, and B1 and B3 count one launch per frame."""
+    steps = compiled.CompiledStep()
+    state = _state(cuda)
+    kw = dict(width=W, height=H, sh_degree=3, max_instances=M)
+    for k in range(5):
+        x = _step_inputs(cuda, k, False)
+        st = state._replace(n_alive=x["n_alive"])
+        sm = torch.full((), 1.0 - 0.1 * k, device=cuda)
+        want = step.eval_render(st, x["camera"], x["bg"], x["low_pass"], sm,
+                                **kw)
+        n0 = _launches()
+        got = steps.eval_render(st, x["camera"], x["bg"], x["low_pass"], sm,
+                                **kw)
+        assert [b - a for a, b in zip(n0, _launches())] == [1, 0, 1, 0]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got.num_instances) > 0
+    assert len(steps.captures) == 1
+
+
+def test_compiled_replay_makes_no_synchronising_call(cuda):
+    """After the capture, a compiled train_step and eval_render queue
+    their copies and replay and return: sync debug mode raises at any
+    call that waits for the card."""
+    steps = compiled.CompiledStep()
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    leaves = {k: torch.full((), v, device=cuda) for k, v in OPT.items()}
+    for k in range(2):
+        x = _step_inputs(cuda, k, True)
+        st = state._replace(n_alive=x["n_alive"])
+        torch.cuda.synchronize()
+        if k:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = steps.train_step(
+                st, opt, x["camera"], x["gt"], x["bg"], x["low_pass"],
+                x["xyz_lr"], width=W, height=H, sh_degree=3,
+                max_instances=M, opt_cfg_leaves=leaves,
+                real_wh=x["real_wh"])
+            frame = steps.eval_render(st, x["camera"], x["bg"],
+                                      x["low_pass"], 0.9, width=W, height=H,
+                                      sh_degree=3, max_instances=M)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out[2].loss))
+    assert int(frame.num_instances) > 0
+
+
+def test_failed_capture_raises(cuda, tmp_path):
+    """A step that waits for the card inside its capture makes the
+    compiled step raise (and keep no graph): nothing carries on eagerly.
+    In a process of its own, as a failed capture may leave the CUDA
+    context unusable."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    script = tmp_path / "fail.py"
+    script.write_text(f"""
+import sys
+sys.path[:0] = [{str(Path(__file__).parent)!r},
+                {str(Path(__file__).parent.parent)!r}]
+import torch
+from rain_tpu_torch.train import compiled, step
+from test_torch_cuda import _state, _step_inputs, OPT, W, H, M
+from rain_tpu_torch.model import adam as adam_mod
+
+eager = step.train_step
+
+def waits(*a, **kw):
+    out = eager(*a, **kw)
+    if torch.cuda.is_current_stream_capturing():
+        float(out[2].loss)       # a host read: not capturable
+    return out
+
+step.train_step = waits
+dev = torch.device("cuda")
+steps = compiled.CompiledStep()
+state = _state(dev)
+x = _step_inputs(dev, 0, False)
+leaves = {{k: torch.full((), v, device=dev) for k, v in OPT.items()}}
+try:
+    steps.train_step(state, adam_mod.init(state.params), x["camera"],
+                     x["gt"], x["bg"], x["low_pass"], x["xyz_lr"], width=W,
+                     height=H, sh_degree=3, max_instances=M,
+                     opt_cfg_leaves=leaves)
+except RuntimeError as e:      # torch.AcceleratorError is one
+    print("raised RuntimeError", len(steps.graphs), flush=True)
+    sys.exit(0)
+print("did not raise", flush=True)
+sys.exit(1)
+""")
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "raised RuntimeError 0" in out.stdout, \
+        out.stdout + out.stderr
+
+
+def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
+    """The Trainer through its compiled step against the same run with
+    CompiledStep's methods replaced by the eager step, across an overflow
+    retry, a capacity growth and densify rounds: the same losses, n_alive
+    and state bit for bit, and a graph per key."""
+    from test_torch_trainer_port import configs, make_scene
+    from rain_tpu_torch.train.trainer import Trainer
+    import torch_trainer_trace as trace_mod
+    scene = make_scene(n_pts=400, size=64)
+    runs = []
+    for eager in (False, True):
+        with monkeypatch.context() as mp:
+            if eager:
+                mp.setattr(compiled.CompiledStep, "train_step",
+                           lambda self, *a, **kw: step.train_step(*a, **kw))
+                mp.setattr(compiled.CompiledStep, "eval_render",
+                           lambda self, *a, **kw: step.eval_render(*a, **kw))
+            trace = trace_mod.record(mp.setattr, compiled.CompiledStep,
+                                     densify_mod, gmod)
+            cfgs = configs(dict(iterations=12, densify_from_iter=4,
+                                densification_interval=6,
+                                opacity_reset_interval=10_000),
+                           dict(capacity=640, max_instances=512))
+            tr = Trainer(scene, cfgs, str(tmp_path / str(eager)),
+                         device=cuda, log_fn=lambda *a: None,
+                         tensorboard=False)
+            tr.train(iterations=12, test_iterations=(12,),
+                     save_iterations=())
+            runs.append((tr, trace_mod.steps(trace),
+                         trace_mod.events(trace, scene)))
+    (a, sa, ca), (b, sb, cb) = runs
+    assert sa == sb and ca == cb
+    assert any(c[0] == "grow" for c in ca) and a.max_instances > 512
+    assert a.state.n_alive == b.state.n_alive
+    for x, y in zip(list(a.state.params) + list(a.opt_state.mu) +
+                    list(a.opt_state.nu),
+                    list(b.state.params) + list(b.opt_state.mu) +
+                    list(b.opt_state.nu)):
+        assert torch.equal(x, y)
+    assert a.history == b.history
+    assert len(a._steps.captures) >= 3 and not b._steps.captures

@@ -97,6 +97,27 @@ def test_eval_render_matches_jax(seed, opac_bias):
     assert int(got.num_instances) > 0 and not bool(got.overflow)
 
 
+def test_eval_render_with_device_scalars_matches_jax():
+    """The compiled step's eval_render (the eager one on the CPU) with
+    scale_modifier, low_pass and n_alive as 0-d tensors, as rain_tpu
+    traces them, against rain_tpu's at scale_modifier 0.7 (a traced
+    argument: this file's compilation)."""
+    from rain_tpu_torch.train import compiled
+    jstate = jgmod.from_arrays(**_raw_scene(3), capacity=CAPACITY)
+    cam = {k: jnp.asarray(v) for k, v in JCamera(**CAM).render_inputs().items()}
+    want = jstep.eval_render(jstate, cam, jnp.asarray(BG), 0.3, 0.7, width=W,
+                             height=H, sh_degree=3, max_instances=M)
+    state = _carry(jstate)
+    got = compiled.CompiledStep().eval_render(
+        state._replace(n_alive=torch.tensor(state.n_alive,
+                                            dtype=torch.int32)),
+        TCamera(**CAM).render_inputs(device="cpu"), torch.from_numpy(BG),
+        torch.tensor(0.3), torch.tensor(0.7), width=W, height=H,
+        sh_degree=3, max_instances=M)
+    _assert_renders_match(got, want)
+    assert int(got.num_instances) > 0 and not bool(got.overflow)
+
+
 def test_empty_scene_renders_background():
     raw = {k: v[:0] for k, v in _raw_scene(1).items()}
     state = tgmod.from_arrays(**raw, capacity=16, device="cpu")

@@ -115,8 +115,9 @@ def _rel_err(got, want):
     return np.abs(got.numpy() - want).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("bucketed", [False, True])
-def test_train_step_matches_jax(bucketed):
+def jax_case(bucketed):
+    """(gt, JAX state with seeded statistics, its Adam state, and
+    rain_tpu's step from them)."""
     rng = np.random.default_rng(1)
     gt = rng.uniform(0, 1, (3, H, W)).astype(np.float32)
     j1 = jgmod.from_arrays(**_raw(), capacity=CAPACITY)
@@ -126,16 +127,25 @@ def test_train_step_matches_jax(bucketed):
         ("xyz_gradient_accum", rng.uniform(0, 1e-2, CAPACITY)),
         ("denom", rng.integers(0, 4, CAPACITY)))})
     jo1 = jadam.init(j1.params)
-    j2, jo2, ja = _jax_step(j1, jo1, 1, gt, bucketed)
+    return gt, j1, jo1, _jax_step(j1, jo1, 1, gt, bucketed)
 
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_train_step_matches_jax(bucketed):
+    gt, j1, jo1, want = jax_case(bucketed)
     t1, to1 = _carry(j1, jo1)
-    t2, to2, ta = _torch_step(t1, to1, 1, gt, bucketed)
+    assert_step_matches(_torch_step(t1, to1, 1, gt, bucketed), want)
 
+
+def assert_step_matches(got, want):
+    """The port's step against rain_tpu's at the module docstring's
+    tolerances."""
+    (t2, to2, ta), (j2, jo2, ja) = got, want
     np.testing.assert_allclose(float(ta.loss), float(ja.loss), rtol=1e-5)
     np.testing.assert_allclose(float(ta.l1), float(ja.l1), rtol=1e-5)
     assert int(ta.num_instances) == int(ja.num_instances) > 0
     assert bool(ta.instance_overflow) == bool(ja.instance_overflow) is False
-    assert ta.n_alive == int(ja.n_alive) == N
+    assert int(ta.n_alive) == int(ja.n_alive) == N
     assert int(to2.step) == int(jo2.step) == 1
     for k in ("denom", "max_radii2d"):
         np.testing.assert_array_equal(getattr(t2, k).numpy(),

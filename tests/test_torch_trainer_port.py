@@ -208,14 +208,18 @@ def test_non_finite_loss_dumps_the_pre_step_state(toy_scene, tmp_path,
 
 def test_bucketed_cameras_train_in_tile_buckets(tmp_path, monkeypatch):
     """Mixed camera sizes train in 16-pixel buckets with the true size as
-    real_wh, and report at the exact size."""
+    real_wh (two 0-d int32 tensors, as rain_tpu traces it), and report at
+    the exact size."""
     sizes = [(48, 48), (41, 37), (48, 48), (45, 40)]
     scene = make_scene(n_cams=4, n_pts=60, sizes=sizes)
     seen = []
     step0 = step_mod.train_step
 
     def recorded(*a, **kw):
-        seen.append((kw["width"], kw["height"], kw["real_wh"]))
+        assert all(v.dtype == torch.int32 and v.dim() == 0
+                   for v in kw["real_wh"])
+        seen.append((kw["width"], kw["height"],
+                     tuple(int(v) for v in kw["real_wh"])))
         return step0(*a, **kw)
 
     monkeypatch.setattr(step_mod, "train_step", recorded)

@@ -41,15 +41,19 @@ def _untimed(fn, *a, **kw):
 def record(setattr_, step_mod, densify_mod, gaussians_mod, *,
            before_densify=None, timer=None):
     """Wrap the four names in the modules given, through ``setattr_``
-    (``monkeypatch.setattr`` or ``Patches.setattr``). Returns the trace, a
-    dict that fills as the loop runs:
+    (``monkeypatch.setattr`` or ``Patches.setattr``). ``step_mod`` is what
+    holds the ``train_step`` the Trainer reaches: a step module, or the
+    port's ``compiled.CompiledStep`` class, whose method the Trainer calls
+    (on the card its replays never reach the step module). Returns the
+    trace, a dict that fills as the loop runs:
 
     - "calls": in call order, ("step", world_view, xyz_lr, sh_degree,
       low_pass, update_densify_stats, max_instances, capacity, width,
       height, n_alive), ("densify", capacity, n_alive, abe_split,
       use_size_threshold, DensifyInfo), ("reset", capacity, n_alive) and
       ("grow", capacity, new_capacity); a step's camera is its world_view
-      array, unread;
+      array, and its xyz_lr, low_pass and n_alive as given, all unread
+      (``calls`` reads them);
     - "aux": each step's StepAux, unread;
     - "t": the host clock (s) as each step was called;
     - "ms": {index in "calls": ms} of each densify round and growth, with
@@ -63,14 +67,15 @@ def record(setattr_, step_mod, densify_mod, gaussians_mod, *,
         step_mod.train_step, densify_mod.densify_and_prune,
         densify_mod.reset_opacity, gaussians_mod.grow_capacity)
 
-    def train_step(state, opt, camera, gt, bg, low_pass, xyz_lr, **kw):
+    def train_step(*a, **kw):
+        # (a method's self first)
+        state, opt, camera, gt, bg, low_pass, xyz_lr = a[-7:]
         trace["t"].append(time.perf_counter())
-        out = step0(state, opt, camera, gt, bg, low_pass, xyz_lr, **kw)
+        out = step0(*a, **kw)
         trace["calls"].append((
-            "step", camera["world_view"], float(np.float32(xyz_lr)),
-            kw["sh_degree"], float(np.float32(low_pass)),
+            "step", camera["world_view"], xyz_lr, kw["sh_degree"], low_pass,
             kw["update_densify_stats"], kw["max_instances"], state.capacity,
-            kw["width"], kw["height"], int(state.n_alive)))
+            kw["width"], kw["height"], state.n_alive))
         trace["aux"].append(out[2])
         return out
 
@@ -107,14 +112,27 @@ def _host(x):
     return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
 
 
+def calls(trace):
+    """The trace's calls with each step's xyz_lr and low_pass read as f32
+    values and its n_alive as an int."""
+    out = []
+    for call in trace["calls"]:
+        if call[0] == "step":
+            f32 = [float(np.float32(_host(call[i]))) for i in (2, 4)]
+            call = call[:2] + (f32[0], call[3], f32[1]) + call[5:10] + \
+                (int(_host(call[10])),)
+        out.append(call)
+    return out
+
+
 def events(trace, scene):
-    """The trace's calls as plain values, read now: each step's camera as
-    its uid in ``scene``, each round's DensifyInfo as (n_cloned, n_split,
-    n_pruned, n_alive, overflow) ints and a bool."""
+    """The trace's calls as plain values, read now (``calls``): each
+    step's camera as its uid in ``scene``, each round's DensifyInfo as
+    (n_cloned, n_split, n_pruned, n_alive, overflow) ints and a bool."""
     uid_of = {np.float32(c.world_view).tobytes(): c.uid
               for c in scene.train_cameras + scene.test_cameras}
     out = []
-    for call in trace["calls"]:
+    for call in calls(trace):
         if call[0] == "step":
             wv = _host(call[1]).astype(np.float32).tobytes()
             call = (call[0], uid_of[wv]) + call[2:]
