@@ -30,7 +30,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    path's frame and on a 256x256 view of 20k Gaussians, bit for bit in
    all 8 channels (its culling skips only pairs the plain loop skips).
    The whole eval_render on the card is held against the port's CPU path
-   on a small scene, at the CPU tests' tolerances.
+   on a small scene, at the CPU tests' tolerances. The focal lengths
+   (ops.projection.focal_lengths, one f32 division as rain_tpu's jitted
+   preprocess computes them) of tests/torch_focal_cases.py's 20,000
+   tan(fov/2) at widths 1297, 96 and 840, the size an int and a 0-d int32
+   tensor, and of its camera whose focal lengths part in the reciprocal
+   form, and the step's learning rates, on the card against the CPU path
+   bit for bit.
 3. The render path: eval_render from 5 poses at 1297x840 with
    max_instances=786,432, its kernels' launch counters set to 0 just
    before and read just after (one launch of B1 and B3 per frame). The
@@ -185,10 +191,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    every band (offset -82 on band 0) bit for bit with their plain
    versions; a second D = 2 run gives the same bits on every rank. A
    Trainer with devices=2 (two ranks on the card) against devices=1 on
-   phase 7's scene, 12 iterations with a densify round at 10 (the same
-   n_alive; params within 2e-3 in all but 1 in 10,000 of each leaf's rows,
-   where a gradient at its rounding's level took another sign and Adam
-   made it a step of lr; those rows counted), and
+   phase 7's scene, 12 iterations with a densify round at 10 and a report
+   at 12 (the same n_alive; params within 2e-3 in all but 1 in 10,000 of
+   each leaf's rows, where a gradient at its rounding's level took another
+   sign and Adam made it a step of lr; those rows counted; rank 0's report
+   frames, rendered through the Trainer's compiled eval_render, each
+   equal to the eager render bit for bit; its steps run eagerly on gloo),
+   and
    entry.dryrun_multichip(4,
    share_device=True). Then the train CLI as a user starts a sharded run:
    phase 8's argv on phase 8's COLMAP scene as 2 processes, one per rank
@@ -335,6 +344,7 @@ from rain_tpu_torch.ops import binning as binning_ops
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import losses as loss_ops
+from rain_tpu_torch.ops import projection as proj_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc, sh_dc_to_rgb
@@ -576,8 +586,10 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 def device_profile(run_once, reps=3):
     """torch.profiler over `reps` calls: per call, the device's busy time
     (the sum of its kernels' and copies' times; one stream, so they do not
-    overlap), the number of device operations launched and the largest of
-    them by time, and the host's launch calls (HOST_LAUNCH_CALLS)."""
+    overlap), the part of it in NCCL's kernels (which wait on the card for
+    the other ranks), the number of device operations launched and the
+    largest of them by time, and the host's launch calls
+    (HOST_LAUNCH_CALLS)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -592,6 +604,8 @@ def device_profile(run_once, reps=3):
         raise AssertionError("the profiler recorded no device time")
     return {
         "busy_ms": busy,
+        "nccl_ms": sum(e.self_device_time_total for e in ops
+                       if "nccl" in e.key.lower()) / 1e3 / reps,
         "launches": sum(e.count for e in ops) / reps,
         "top": [[e.key[:100], e.self_device_time_total / 1e3 / reps,
                  e.count / reps] for e in ops[:12]],
@@ -782,6 +796,52 @@ def host_snapshot(state, opt):
     return (host(state.params),
             adam_mod.AdamState(host(opt.mu), host(opt.nu), opt.step.cpu()),
             [getattr(state, k).cpu() for k in gmod.STAT_FIELDS])
+
+
+FOCAL = tests_module("torch_focal_cases")   # C.1's CPU test cases
+
+
+def focal_on_card():
+    """C.1 on the card: projection.focal_lengths of the CPU test's 20,000
+    tan(fov/2) at its three widths (the size an int and a 0-d int32
+    tensor) and of its camera whose focal lengths part in the reciprocal
+    form, and features_rest's learning rate (step.learning_rates) at
+    bench.py's lrs, each bit for bit with the CPU path. Returns the
+    record."""
+    tan = torch.from_numpy(FOCAL.tans())
+    parted = {}
+    for width in FOCAL.WIDTHS:
+        for size in (width, torch.tensor(width, dtype=torch.int32)):
+            card = proj_ops.focal_lengths(
+                tan.to(DEV), tan.to(DEV),
+                size.to(DEV) if torch.is_tensor(size) else size, width)
+            cpu = proj_ops.focal_lengths(tan, tan, size, width)
+            if not all(bitwise_equal(a.cpu(), b) for a, b in zip(card,
+                                                                  cpu)):
+                raise AssertionError(f"C.1: focal lengths at {width} "
+                                     f"({type(size).__name__}) differ "
+                                     f"from the CPU's")
+        parted[width] = int((FOCAL.reciprocal_form(tan, width) !=
+                             cpu[0]).sum())
+    fovx, fovy = FOCAL.parting_fovs(48, 80)
+    cam = Camera(uid=0, image_name="c1", R=np.eye(3), T=np.zeros(3),
+                 fovx=fovx, fovy=fovy, image=None, width=48, height=80)
+    got = [proj_ops.focal_lengths(c["tanfovx"], c["tanfovy"], 48, 80)
+           for c in (cam.render_inputs(DEV), cam.render_inputs("cpu"))]
+    lrs = [step.learning_rates(OPT_LEAVES, XYZ_LR, d)
+           for d in (DEV, torch.device("cpu"))]
+    if not all(bitwise_equal(a.cpu(), b) for a, b in zip(*got)) or \
+            not all(bitwise_equal(a.cpu(), b) for a, b in zip(
+                lrs[0][1:], lrs[1][1:])):
+        raise AssertionError("C.1: the parting camera's focal lengths or "
+                             "the learning rates differ from the CPU's")
+    print(f"C.1: focal lengths of {FOCAL.N_TAN} tan(fov/2) at widths "
+          f"{list(FOCAL.WIDTHS)} (an int and a 0-d int32 size), of the "
+          f"camera at fov ({fovx:.3f}, {fovy:.3f}) and the lrs equal the "
+          f"CPU's bit for bit; the reciprocal form parted at "
+          f"{parted} of them")
+    return {"reciprocal_form_parted": parted,
+            "features_rest_lr": float(lrs[0].features_rest)}
 
 
 # --- 7. the Trainer loop -------------------------------------------------
@@ -2044,6 +2104,69 @@ def sharded_rank(rank, dev, parent_sizes, ref_dir, floors, check, timed):
     return rec
 
 
+CAPTURED_REPLAYS = 20      # replays of the captured sharded step held
+
+
+def captured_rank(rank, dev, parent_sizes, ref_dir, replays):
+    """One rank of chip_multicard.py's captured sharded step at phase 4's
+    step 0 (``sharded_rank``'s shard, camera and ground truth; every
+    per-call value a 0-d tensor on the card), over NCCL: the eager step
+    once, then through a fresh CompiledStep its first call (the warm-up,
+    then the capture) and two replays (the peak and reserved memory above
+    what the rank held, ``memory_of``), then ``replays`` replays of the
+    same inputs, their counts set to 0 just before and read just after,
+    each held to the eager step bit for bit on the rank's shard. Then per
+    path, eager and captured: host ms per step (``path_times``: each call
+    synchronised, in turns, and 10 calls queued) and the device's busy
+    time, operations and the host's launch calls per step
+    (``device_profile``). Returns the rank's record."""
+    adopt(parent_sizes)
+    world = distributed.world_size()
+    state = gmod.from_arrays(**perturbed(garden_proxy_state_arrays()),
+                             device=dev)
+    s = sharding.shard_state(state, rank, world)
+    o = sharding.shard_opt(adam_mod.init(state.params), rank, world)
+    del state
+
+    def f32(v):
+        return torch.full((), v, dtype=torch.float32, device=dev)
+
+    args = (s._replace(n_alive=torch.full((), s.n_alive, dtype=torch.int32,
+                                          device=dev)), o,
+            pose(0, WIDTH, HEIGHT).render_inputs(dev),
+            torch.from_numpy(np.load(Path(ref_dir) / "gt.npy")).to(dev),
+            torch.tensor(BG, device=dev), f32(LOW_PASS), f32(XYZ_LR),
+            {k: f32(v) for k, v in OPT_LEAVES.items()})
+    kw = dict(width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+              max_instances_per_shard=MAX_INSTANCES)
+    eager_step = sharding.make_sharded_train_step(**kw)
+    steps = compiled.CompiledStep()
+    paths = {"eager": lambda: eager_step(*args),
+             "captured": lambda: steps.sharded_train_step(*args, **kw)}
+    want = SHARDING._step_tensors(paths["eager"]())
+    peak, reserved = memory_of(lambda: [paths["captured"]()
+                                        for _ in range(3)])
+    sync(dev)
+    reset_counts()
+    equal = []
+    for _ in range(replays):
+        got = SHARDING._step_tensors(paths["captured"]())
+        equal.append(all(SHARDING._same_bits(a, b)
+                         for a, b in zip(got, want)))
+    sync(dev)
+    launches = read_counts()
+    rec = {"rank": rank, "replays_equal": equal, "launches": launches,
+           "digest": tensors_digest(want), "replay_digest":
+           tensors_digest(got), "captures": [[list(k), ms] for k, ms in
+                                             steps.captures],
+           "peak_mib": peak, "reserved_mib": reserved,
+           "loss": float(want[-4]), "num_instances": int(want[-2])}
+    rec.update(path_times(paths))
+    for name, fn in paths.items():
+        rec[name].update(device_profile(fn))
+    return rec
+
+
 def negative_offset_band():
     """B1, B3 and B4 at tile offset -82 (the sharded step's band 0 at full
     width, 29 tile rows) on a band whose rects start in the row above the
@@ -2077,23 +2200,74 @@ def negative_offset_band():
     return {"instances": total, "row_minus1_instances": row0}
 
 
-def sharded_trainer_rank(rank, dev, scene_path, cfgs, single_dir, out_dir):
-    """A Trainer of 2 ranks on phase 7's scene (``sharded_trainer``);
-    rank 0 holds its params against the single-device run's. Returns
-    rank 0's record."""
+def eager_compiled_step(patches):
+    """Replace CompiledStep's sharded_train_step and eval_render by the
+    eager sharded step (made afresh each call, as before the step was
+    compiled) and the eager render, through ``patches.setattr``."""
+    def sharded(self, state, opt, camera, gt, bg, low_pass, xyz_lr, leaves,
+                *, group=None, **kw):
+        return sharding.make_sharded_train_step(group, **kw)(
+            state, opt, camera, gt, bg, low_pass, xyz_lr, leaves)
+    patches.setattr(compiled.CompiledStep, "sharded_train_step", sharded)
+    patches.setattr(compiled.CompiledStep, "eval_render",
+                    lambda self, *a, **kw: step.eval_render(*a, **kw))
+
+
+def tensors_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_trainer_rank(rank, dev, scene_path, cfgs, single_dir, out_dir,
+                         eager=False):
+    """A Trainer of 2 ranks on phase 7's scene (``sharded_trainer``) with a
+    report at its last iteration, whose frames rank 0 renders through the
+    Trainer's CompiledStep: each frame is held to the eager eval_render of
+    the same arguments bit for bit (the eager render's launches not
+    counted). With ``eager`` the CompiledStep's sharded_train_step and
+    eval_render are the eager ones (``eager_compiled_step``): the run the
+    compiled one is held to. Every rank returns a digest of its shard's
+    params, statistics and moments and its captures; rank 0 also its
+    params against the single-device run's and its report."""
     with open(scene_path, "rb") as f:
         scene = pickle.load(f)
-    log = []
-    tr = trainer_mod.Trainer(scene, cfgs, out_dir,
-                             device=dev, log_fn=log.append,
-                             tensorboard=False)
-    t = time.perf_counter()
-    state = tr.train(iterations=SHARD_TRAINER_ITERS, test_iterations=(),
-                     save_iterations=())
-    sync(dev)
-    train_s = time.perf_counter() - t
+    held = []
+    with TRACE.Patches() as patches:
+        if eager:
+            eager_compiled_step(patches)
+        else:
+            render = compiled.CompiledStep.eval_render
+
+            def held_render(self, *a, **kw):
+                out = render(self, *a, **kw)
+                counts = read_counts()
+                want = step.eval_render(*a, **kw)
+                set_counts(counts)
+                held.append(all(equal_bits(x, y)
+                                for x, y in zip(out, want)))
+                return out
+            patches.setattr(compiled.CompiledStep, "eval_render",
+                            held_render)
+        log = []
+        tr = trainer_mod.Trainer(scene, cfgs, out_dir,
+                                 device=dev, log_fn=log.append,
+                                 tensorboard=False)
+        t = time.perf_counter()
+        state = tr.train(iterations=SHARD_TRAINER_ITERS,
+                         test_iterations=(SHARD_TRAINER_ITERS,),
+                         save_iterations=())
+        sync(dev)
+        train_s = time.perf_counter() - t
+    shard = tr.state
+    rec = {"digest": tensors_digest(
+        list(shard.params) + [getattr(shard, k) for k in gmod.STAT_FIELDS]
+        + list(tr.opt_state.mu) + list(tr.opt_state.nu)),
+        "captures": [[list(k), ms] for k, ms in tr._steps.captures],
+        "report_frames_held": len(held), "report_frames_equal": all(held)}
     if rank:
-        return None
+        return rec
     n = state.n_alive
     err, over = {}, {}
     for name, t in state.params._asdict().items():
@@ -2102,10 +2276,10 @@ def sharded_trainer_rank(rank, dev, scene_path, cfgs, single_dir, out_dir):
         d = d.reshape(n, -1).max(axis=1)
         err[name] = float(np.sort(d)[-1 - int(SHARD_OUTLIERS * n)])
         over[name] = int((d >= 2e-3).sum())
-    return {"n_alive": n, "capacity": state.capacity,
-            "max_abs_err_but_outliers": err, "rows_over_2e-3": over,
-            "tier": tr.max_instances, "train_s": train_s,
-            "log": [line for line in log if line.startswith("[cap]")]}
+    return dict(rec, n_alive=n, capacity=state.capacity,
+                max_abs_err_but_outliers=err, rows_over_2e_3=over,
+                tier=tr.max_instances, train_s=train_s, report=tr.history,
+                log=[line for line in log if line.startswith("[cap]")])
 
 
 def sharded_trainer_configs(devices):
@@ -2148,11 +2322,37 @@ def sharded_trainer(arrays, tmp, share_device=True):
         np.save(single / f"{name}.npy", v.cpu().numpy())
     n1 = state.n_alive
     del tr, state
-    rec = launch.spawn(sharded_trainer_rank, 2, device=DEV,
-                       share_device=share_device, timeout_s=900,
-                       args=(str(scene_path), sharded_trainer_configs(2),
-                             str(single), str(tmp / "two")))[0]
+    def ranks(eager, out):
+        return launch.spawn(sharded_trainer_rank, 2, device=DEV,
+                            share_device=share_device, timeout_s=900,
+                            args=(str(scene_path),
+                                  sharded_trainer_configs(2), str(single),
+                                  str(tmp / out), eager))
+    runs = ranks(False, "two")
+    rec = runs[0]
     rec["single"] = {"n_alive": n1, "train_s": single_s}
+    if not rec["report_frames_held"] or not rec["report_frames_equal"]:
+        raise AssertionError(
+            f"sharded Trainer: rank 0's {rec['report_frames_held']} report "
+            f"frames through the compiled eval_render against the eager "
+            f"render: equal {rec['report_frames_equal']}")
+    if not share_device:
+        # over NCCL the steps are captured: the same run with the eager
+        # step and render gives the same bits on every rank
+        again = ranks(True, "two_eager")
+        if [r["digest"] for r in runs] != [r["digest"] for r in again] or \
+                again[0]["report"] != rec["report"] or \
+                not all(r["captures"] for r in runs):
+            raise AssertionError(
+                "sharded Trainer over nccl: the captured run differs from "
+                "the eager one (or captured nothing)")
+        rec["eager_train_s"] = again[0]["train_s"]
+        print(f"sharded Trainer over nccl through the captured step: "
+              f"every rank's state and moments and rank 0's report equal "
+              f"the eager run's bit for bit; {len(runs[0]['captures'])} "
+              f"captures on rank 0, {len(runs[1]['captures'])} on rank 1; "
+              f"{rec['train_s']:.1f} s against {rec['eager_train_s']:.1f} s "
+              f"eager")
     if rec["n_alive"] != n1:
         raise AssertionError(f"sharded Trainer: n_alive {rec['n_alive']} "
                              f"against {n1} on one device")
@@ -2162,13 +2362,15 @@ def sharded_trainer(arrays, tmp, share_device=True):
             f"sharded Trainer: params off by "
             f"{rec['max_abs_err_but_outliers']} past the "
             f"{int(SHARD_OUTLIERS * n1)} farthest rows (rows off by 2e-3 "
-            f"or more {rec['rows_over_2e-3']} of {n1})")
+            f"or more {rec['rows_over_2e_3']} of {n1})")
     print(f"sharded Trainer (2 ranks, {ranks_where(share_device)}) "
           f"against devices=1: "
           f"n_alive {n1} equal, params within {worst:.3g} but for "
           f"{int(SHARD_OUTLIERS * n1)} rows a leaf (rows off by 2e-3 or "
-          f"more: {rec['rows_over_2e-3']}), tier {rec['tier']}, "
-          f"{rec['train_s']:.1f} s against {single_s:.1f} s")
+          f"more: {rec['rows_over_2e_3']}), tier {rec['tier']}, "
+          f"{rec['train_s']:.1f} s against {single_s:.1f} s; rank 0's "
+          f"{rec['report_frames_held']} report frames through the "
+          f"compiled eval_render equal the eager renders bit for bit")
     return rec
 
 
@@ -2203,7 +2405,7 @@ def sharded_cli(src, out, world, backend, share_device, kernels):
         argv += ["--device", "cuda:0"]
     torch.cuda.empty_cache()
     rcs, logs, wall_s = SHARDING.train_cli_ranks(argv, world, ranks_dir,
-                                                 counts=True, timeout_s=600)
+                                                 counts=True, timeout_s=300)
     for r, (rc, log) in enumerate(zip(rcs, logs)):
         if rc != 0:
             raise AssertionError(f"{what}: rank {r} exited {rc}\n"
@@ -3200,6 +3402,7 @@ def main(out: Path | None = None):
         raise AssertionError(f"eval_render card vs CPU: n_contrib differs "
                              f"at {flips} pixels")
     print("eval_render on the card matches the CPU path (160x112, 3k)")
+    focal_rec = focal_on_card()
 
     # --- 3. the render path -----------------------------------------------
     bg = torch.tensor(BG, device=DEV)
@@ -3415,7 +3618,7 @@ def main(out: Path | None = None):
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
-        "b2_cases": b2_cases,
+        "b2_cases": b2_cases, "focal": focal_rec,
         "render": {
             "frame_ms_main_path": frame_ms,
             "frame_ms_median": frame[0], "frame_ms_quartiles": frame[1],

@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.ops import sh as sh_ops
 
 TILE = 16          # BLOCK_X == BLOCK_Y == 16 (config.h:4-5)
@@ -44,6 +45,19 @@ class Preprocessed(NamedTuple):
     rect_min: torch.Tensor      # [N, 2] int32 (tx0, ty0) tile rect
     rect_wh: torch.Tensor       # [N, 2] int32 (w, h) tile rect size
     tiles_touched: torch.Tensor  # [N] int32 = w*h (0 if culled)
+
+
+def focal_lengths(tan_fovx: torch.Tensor, tan_fovy: torch.Tensor, width,
+                  height) -> tuple[torch.Tensor, torch.Tensor]:
+    """(focal_x, focal_y) in pixels: the size over 2·tan(fov/2), one f32
+    division each, as rain_tpu's jitted ``width / (2.0 * tan_fovx)``
+    (rain_tpu/ops/projection.py:191-192). The size, an int or a 0-d int32
+    tensor (a bucketed step's true size), becomes a 0-d f32 tensor first:
+    both give the same bits, and torch takes a number over a tensor as the
+    number times the tensor's reciprocal, which rounds twice."""
+    dev = tan_fovx.device
+    return (device_mod.scalar(width, torch.float32, dev) / (2.0 * tan_fovx),
+            device_mod.scalar(height, torch.float32, dev) / (2.0 * tan_fovy))
 
 
 def quat_scale_to_cov3d(scale: torch.Tensor, quat: torch.Tensor,
@@ -180,10 +194,7 @@ def preprocess(means3d: torch.Tensor,
     if grid is None:
         grid = ((width + TILE - 1) // TILE, (height + TILE - 1) // TILE)
     grid_x, grid_y = grid
-    # the size times the reciprocal, as torch takes a number over a tensor,
-    # so that an int and a 0-d device tensor give the same bits
-    focal_x = torch.reciprocal(2.0 * tan_fovx) * width
-    focal_y = torch.reciprocal(2.0 * tan_fovy) * height
+    focal_x, focal_y = focal_lengths(tan_fovx, tan_fovy, width, height)
 
     p_h = torch.cat([means3d, torch.ones_like(means3d[:, :1])], dim=-1)
     p_view = p_h @ world_view[:3, :].T                        # [N, 3]

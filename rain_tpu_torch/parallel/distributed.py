@@ -93,6 +93,12 @@ def rank(group=None) -> int:
     return dist.get_rank(group) if is_initialized() else 0
 
 
+def backend(group=None) -> str | None:
+    """The group's backend, "gloo" or "nccl"; None without an initialised
+    group."""
+    return dist.get_backend(group) if is_initialized() else None
+
+
 def shutdown() -> None:
     """Leave the default group, if this process is in one."""
     if is_initialized():

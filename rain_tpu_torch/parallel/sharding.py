@@ -152,7 +152,8 @@ def gather_opt(opt: adam_mod.AdamState, group=None) -> adam_mod.AdamState:
 
 def shard_alive(state: gmod.GaussianState, rank: int) -> torch.Tensor:
     """The alive mask of shard ``rank``'s rows: row i of the shard is row
-    rank·C_shard + i of the whole state, alive below ``n_alive``."""
+    rank·C_shard + i of the whole state, alive below ``n_alive`` (an int
+    or a 0-d int32 device tensor)."""
     dev = state.params.xyz.device
     first = rank * state.capacity
     return torch.arange(first, first + state.capacity,
@@ -208,9 +209,13 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
     calls together. ``state`` and ``opt`` are this rank's shards
     (``shard_state``, ``shard_opt``; ``n_alive`` the whole state's) and come
     back as new tensors; camera, gt_image [3, H, W], bg and the learning
-    rates are every rank's same values. ``on_stage(name, value)`` sees the
-    band's stages of ops.render.STAGES from "depth_sort" on, and its
-    BACKWARD_STAGES.
+    rates are every rank's same values. Every value that changes from call
+    to call may be a 0-d device tensor, as rain_tpu traces it, or a
+    number, with the same bits: ``state.n_alive`` (int32), ``low_pass``,
+    ``xyz_lr`` and the four ``opt_leaves`` (f32); train.compiled captures
+    the step on an NCCL group with them as graph inputs.
+    ``on_stage(name, value)`` sees the band's stages of ops.render.STAGES
+    from "depth_sort" on, and its BACKWARD_STAGES.
     """
     world = distributed.world_size(group)
     rank = distributed.rank(group)

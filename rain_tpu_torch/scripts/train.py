@@ -173,6 +173,7 @@ def main(argv=None):
                 start_checkpoint=args.start_checkpoint)
     finally:
         if args.dist_init:
+            trainer._steps.clear()   # its graphs go before the group
             distributed.shutdown()
     if rank0:
         print("\nTraining complete.")

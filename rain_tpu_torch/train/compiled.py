@@ -1,24 +1,31 @@
-"""The compiled step: ``train_step`` and ``eval_render`` captured once per
-key and replayed as CUDA graphs.
+"""The compiled step: ``train_step``, ``eval_render`` and the sharded
+step captured once per key and replayed as CUDA graphs.
 
 The counterpart of rain_tpu's compilation (rain_tpu/train/step.py:32-35,
-102-104): rain_tpu jits both functions, keyed by their static arguments
-and the shapes, with every value that changes from call to call traced as
-a device input of the one compiled program. Here the program is a
-``torch.cuda.CUDAGraph`` of the unchanged eager step (train.step), and the
-per-call values are device inputs of the graph:
+102-104, rain_tpu/parallel/sharding.py:271-290): rain_tpu jits all three,
+keyed by their static arguments and the shapes, with every value that
+changes from call to call traced as a device input of the one compiled
+program. Here the program is a ``torch.cuda.CUDAGraph`` of the unchanged
+eager step (train.step, parallel.sharding), and the per-call values are
+device inputs of the graph:
 
 - **Key.** ``train_key``: width, height, sh_degree, max_instances,
   lambda_dssim, update_densify_stats, the capacity and whether the step
   is bucketed (``real_wh`` given); ``eval_key``: width, height, sh_degree,
-  max_instances and the capacity. The inputs' shapes follow from the key;
-  an input of another shape raises ValueError.
+  max_instances and the capacity; ``sharded_key``: width, height,
+  sh_degree, the tier per shard, lambda_dssim, update_densify_stats, the
+  world size, the rank and the shard's capacity (the sharded step of each
+  key is made once, as rain_tpu/train/trainer.py:272-283 caches it). The
+  inputs' shapes follow from the key; an input of another shape raises
+  ValueError.
 - **Capture.** The first call of a key copies its inputs into static
   buffers, runs the eager step on them once on a side stream (the
   warm-up that ``torch.cuda.graphs`` asks for under autograd: lazy set-up
   happens outside the capture), whose outputs are that call's result, and
   then captures the step from the CompiledStep's one memory pool. A
-  capture that fails raises; nothing falls back to the eager step.
+  capture that fails raises; nothing falls back to the eager step. In a
+  process of an NCCL group the capture runs in "thread_local" mode
+  (``capture_mode``), else in torch's default "global" one.
 - **Replay.** A call copies its inputs into the buffers (device to device,
   one multi-tensor copy per dtype; a Python number is a fill), replays
   the graph and copies its outputs into new tensors, so the inputs are
@@ -40,9 +47,21 @@ per-call values are device inputs of the graph:
   outgrown, returning their memory to the pool (or, with the last graph,
   releasing the pool).
 
-A state on the CPU runs the eager step, as the kernel wrappers run their
-plain versions there; the key is recorded on both paths (``train_keys``,
-``eval_keys``). No ``on_stage`` hook: the hooks stay on the eager step.
+Which path runs: a state on the CPU runs the eager step, as the kernel
+wrappers run their plain versions there. The sharded step is captured on
+a group whose backend is NCCL, with the state on the card: its
+collectives (the gathers, the rank-ordered reduce-scatter of the gathers'
+backward, the all-reduces) are captured with the rest. Every rank
+captures, and then replays, its graph of a key at the same call: the
+ranks' keys differ in the rank alone, and the flags that decide a
+rollback are all-reduced. The warm-up's collectives make NCCL's
+communicator before any capture. On a gloo group it runs the eager step:
+gloo's collectives are host calls, which a graph cannot hold. The rule is
+the group's backend, not a fallback: a capture that fails on NCCL raises.
+The key is recorded on every path (``train_keys``, ``eval_keys``,
+``sharded_train_keys``). No ``on_stage`` hook: the hooks stay on the
+eager step. ``clear`` drops every graph, which an NCCL group's
+communicator must outlive.
 """
 
 from __future__ import annotations
@@ -57,6 +76,8 @@ from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
+from rain_tpu_torch.parallel import distributed
+from rain_tpu_torch.parallel import sharding
 from rain_tpu_torch.train import step as step_mod
 
 # the kernel wrappers whose launch counters a replay adds to: B1–B4
@@ -85,6 +106,18 @@ class EvalKey(NamedTuple):
     capacity: int
 
 
+class ShardedKey(NamedTuple):
+    width: int
+    height: int
+    sh_degree: int
+    max_instances: int       # per band: max_instances_per_shard
+    lambda_dssim: float
+    update_densify_stats: bool
+    world: int
+    rank: int
+    capacity: int            # the shard's
+
+
 def train_key(state: gmod.GaussianState, *, width: int, height: int,
               sh_degree: int, max_instances: int, lambda_dssim: float = 0.2,
               update_densify_stats: bool = True,
@@ -102,6 +135,36 @@ def eval_key(state: gmod.GaussianState, *, width: int, height: int,
     """The key of an ``eval_render`` call."""
     return EvalKey(int(width), int(height), int(sh_degree),
                    int(max_instances), state.capacity)
+
+
+def sharded_key(state: gmod.GaussianState, *, width: int, height: int,
+                sh_degree: int, max_instances_per_shard: int,
+                lambda_dssim: float = 0.2, update_densify_stats: bool = True,
+                group=None) -> ShardedKey:
+    """The key of a sharded step's call: rain_tpu's ``_get_sharded_step``
+    key (rain_tpu/train/trainer.py:273-274: width, height, sh_degree, the
+    tier per shard, the devices, update_densify_stats) with lambda_dssim,
+    this rank and the shard's capacity (``state``: this rank's shard)."""
+    return ShardedKey(int(width), int(height), int(sh_degree),
+                      int(max_instances_per_shard), float(lambda_dssim),
+                      bool(update_densify_stats),
+                      distributed.world_size(group), distributed.rank(group),
+                      state.capacity)
+
+
+def _whole_capacity(key) -> int:
+    """The capacity of the whole state a key's graph steps or renders."""
+    return key.capacity * key.world if isinstance(key, ShardedKey) else \
+        key.capacity
+
+
+def capture_mode() -> str:
+    """The capture's cudaStreamCaptureMode: "thread_local" in a process of
+    an NCCL group, whose watchdog thread queries the events of earlier
+    collectives while a capture runs (in "global" mode a call of another
+    thread can invalidate the capture); "global", torch's default, in any
+    other process."""
+    return "thread_local" if distributed.backend() == "nccl" else "global"
 
 
 def _spec(value, dtype) -> tuple:
@@ -155,7 +218,8 @@ class _Graph:
         before = [k.launches for k in COUNTED]
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool,
+                                  capture_error_mode=capture_mode()):
                 self.outputs = fn(self.inputs)
         finally:
             self.launches = [k.launches - n for k, n in zip(COUNTED, before)]
@@ -227,16 +291,70 @@ def _state(take, with_stats: bool) -> gmod.GaussianState:
     return gmod.GaussianState(params, n_alive, *stats)
 
 
+def _opt(take) -> adam_mod.AdamState:
+    """An AdamState from the buffers: the moments, then the step count."""
+    mu = gmod.GaussianParams(*take(N_PARAMS))
+    return adam_mod.AdamState(mu, gmod.GaussianParams(*take(N_PARAMS)),
+                              *take(1))
+
+
+def _step_inputs(state, opt, camera, gt_image, bg, low_pass, xyz_lr,
+                 leaves, wh=()):
+    """(values, dtypes) of a training step's inputs, in the order
+    ``_step_args`` takes them back; n_alive, real_wh (``wh``) int32, the
+    rates f32."""
+    f32, i32 = torch.float32, torch.int32
+    return _flat(
+        (list(state.params), None),
+        ([getattr(state, k) for k in gmod.STAT_FIELDS], None),
+        ([state.n_alive], i32),
+        (list(opt.mu) + list(opt.nu) + [opt.step], None),
+        ([camera[k] for k in CAMERA] + [gt_image, bg], None),
+        ([low_pass, xyz_lr] + [leaves[k] for k in OPT_LEAVES], f32),
+        (list(wh), i32))
+
+
+def _step_args(buffers, n_wh: int) -> tuple:
+    """(state, opt, camera, gt_image, bg, low_pass, xyz_lr, leaves, wh)
+    from the buffers of ``_step_inputs``."""
+    take = _taker(buffers)
+    st = _state(take, with_stats=True)
+    op = _opt(take)
+    cam = dict(zip(CAMERA, take(len(CAMERA))))
+    gt, bgv, lp, lr = take(4)
+    leaves = dict(zip(OPT_LEAVES, take(len(OPT_LEAVES))))
+    return st, op, cam, gt, bgv, lp, lr, leaves, tuple(take(n_wh))
+
+
+def _step_outputs(state, opt, aux) -> list:
+    """A training step's results as the list of tensors a graph returns."""
+    return (list(state.params) +
+            [getattr(state, k) for k in gmod.STAT_FIELDS] +
+            list(opt.mu) + list(opt.nu) + [opt.step] +
+            [aux.loss, aux.l1, aux.num_instances, aux.instance_overflow])
+
+
+def _step_results(outputs, n_alive) -> tuple:
+    """(state, opt, (loss, l1, num_instances, instance_overflow)) from
+    ``_step_outputs``' list; the state's n_alive is ``n_alive``."""
+    take = _taker(outputs)
+    params = gmod.GaussianParams(*take(N_PARAMS))
+    state = gmod.GaussianState(params, n_alive, *take(len(gmod.STAT_FIELDS)))
+    return state, _opt(take), take(4)
+
+
 class CompiledStep:
-    """``train_step`` and ``eval_render`` of train.step, each key captured
-    once into a CUDA graph (see the module docstring). One instance holds
-    one memory pool for all its graphs: one per Trainer, or per render
-    CLI run. ``captures`` lists (key, warm-up and capture ms) in order."""
+    """``train_step`` and ``eval_render`` of train.step, and the sharded
+    step of parallel.sharding, each key captured once into a CUDA graph
+    (see the module docstring). One instance holds one memory pool for all
+    its graphs: one per Trainer, or per render CLI run. ``captures`` lists
+    (key, warm-up and capture ms) in order."""
 
     def __init__(self):
         self.graphs = {}
         self.train_keys = set()
         self.eval_keys = set()
+        self.sharded_train_keys = set()
         self.captures = []
         self._pool = None
         # static input buffers, shared by the graphs whose inputs have the
@@ -244,6 +362,9 @@ class CompiledStep:
         # static arguments only): replays run one at a time, each after
         # its own copy-in
         self._buffers = {}
+        # the sharded step of each key, made once (rain_tpu/train/
+        # trainer.py:272-283)
+        self._sharded_fns = {}
 
     def _run(self, key, fn, inputs, dtypes, device) -> list:
         """fn's outputs on ``inputs``: replayed from the key's graph, or,
@@ -265,19 +386,34 @@ class CompiledStep:
         return g.take_first(inputs)
 
     def retire(self, capacity: int, max_instances: int) -> None:
-        """Drop the graphs of keys below ``capacity`` or below the tier
+        """Drop the graphs of keys below the whole capacity ``capacity``
+        (a sharded key's shard capacity times its ranks) or below the tier
         ``max_instances``: a Trainer's capacity and tier only grow. A pool
         left without a graph is released, and the next capture starts
         another (a pool's handle is not reused once its last graph is
         gone)."""
-        for key in [k for k in self.graphs if k.capacity < capacity or
-                    k.max_instances < max_instances]:
+        def outgrown(k):
+            return _whole_capacity(k) < capacity or \
+                k.max_instances < max_instances
+        for key in [k for k in self.graphs if outgrown(k)]:
             del self.graphs[key]
+        self._sharded_fns = {k: f for k, f in self._sharded_fns.items()
+                             if not outgrown(k)}
         kinds = {g.kind for g in self.graphs.values()}
         self._buffers = {k: v for k, v in self._buffers.items()
                          if k in kinds}
         if not self.graphs:
             self._pool = None
+
+    def clear(self) -> None:
+        """Drop every graph, after the device has run what was queued. An
+        NCCL group's communicator must not be destroyed while a graph
+        holds its collectives: NCCL waits for such graphs to go, and a
+        process that destroys the group first hangs there."""
+        if self.graphs:
+            torch.cuda.synchronize()
+        self.graphs, self._buffers, self._sharded_fns = {}, {}, {}
+        self._pool = None
 
     def train_step(self, state: gmod.GaussianState, opt: adam_mod.AdamState,
                    camera: dict, gt_image: torch.Tensor, bg: torch.Tensor,
@@ -303,45 +439,65 @@ class CompiledStep:
                 state, opt, camera, gt_image, bg, low_pass, xyz_lr,
                 opt_cfg_leaves=opt_cfg_leaves, real_wh=real_wh, **kw)
 
-        f32, i32 = torch.float32, torch.int32
-        wh = list(real_wh or ())
-        xs, dtypes = _flat(
-            (list(state.params), None),
-            ([getattr(state, k) for k in gmod.STAT_FIELDS], None),
-            ([state.n_alive], i32),
-            (list(opt.mu) + list(opt.nu) + [opt.step], None),
-            ([camera[k] for k in CAMERA] + [gt_image, bg], None),
-            ([low_pass, xyz_lr] + [opt_cfg_leaves[k] for k in OPT_LEAVES],
-             f32),
-            (wh, i32))
+        wh = tuple(real_wh or ())
+        xs, dtypes = _step_inputs(state, opt, camera, gt_image, bg, low_pass,
+                                  xyz_lr, opt_cfg_leaves, wh)
 
         def run(b):
-            take = _taker(b)
-            st = _state(take, with_stats=True)
-            params = gmod.GaussianParams(*take(N_PARAMS))
-            op = adam_mod.AdamState(
-                params, gmod.GaussianParams(*take(N_PARAMS)), *take(1))
-            cam = dict(zip(CAMERA, take(len(CAMERA))))
-            gt, bgv, lp, lr = take(4)
-            leaves = dict(zip(OPT_LEAVES, take(len(OPT_LEAVES))))
-            s2, o2, aux = step_mod.train_step(
+            st, op, cam, gt, bgv, lp, lr, leaves, rwh = _step_args(b, len(wh))
+            return _step_outputs(*step_mod.train_step(
                 st, op, cam, gt, bgv, lp, lr, opt_cfg_leaves=leaves,
-                real_wh=tuple(take(len(wh))) or None, **kw)
-            return (list(s2.params) +
-                    [getattr(s2, k) for k in gmod.STAT_FIELDS] +
-                    list(o2.mu) + list(o2.nu) + [o2.step] +
-                    [aux.loss, aux.l1, aux.num_instances,
-                     aux.instance_overflow])
+                real_wh=rwh or None, **kw))
 
-        take = _taker(self._run(key, run, xs, dtypes, dev))
-        params = gmod.GaussianParams(*take(N_PARAMS))
-        new_state = gmod.GaussianState(params, state.n_alive,
-                                       *take(len(gmod.STAT_FIELDS)))
-        mu = gmod.GaussianParams(*take(N_PARAMS))
-        new_opt = adam_mod.AdamState(
-            mu, gmod.GaussianParams(*take(N_PARAMS)), *take(1))
-        loss, l1, n_inst, overflow = take(4)
+        new_state, new_opt, (loss, l1, n_inst, overflow) = _step_results(
+            self._run(key, run, xs, dtypes, dev), state.n_alive)
         return new_state, new_opt, step_mod.StepAux(
+            loss=loss, l1=l1, num_instances=n_inst,
+            instance_overflow=overflow, n_alive=state.n_alive)
+
+    def sharded_train_step(self, state: gmod.GaussianState,
+                           opt: adam_mod.AdamState, camera: dict,
+                           gt_image: torch.Tensor, bg: torch.Tensor,
+                           low_pass, xyz_lr, opt_leaves: dict, *, width: int,
+                           height: int, sh_degree: int,
+                           max_instances_per_shard: int,
+                           lambda_dssim: float = 0.2,
+                           update_densify_stats: bool = True, group=None):
+        """The step of ``sharding.make_sharded_train_step(group, ...)``
+        (same arguments but ``on_stage``, same results) on this rank's
+        shard, made once per key; on an NCCL group with the state on the
+        card replayed from the key's graph, with its collectives inside.
+        Every rank of the group calls it together, with the same key."""
+        key = sharded_key(state, width=width, height=height,
+                          sh_degree=sh_degree,
+                          max_instances_per_shard=max_instances_per_shard,
+                          lambda_dssim=lambda_dssim,
+                          update_densify_stats=update_densify_stats,
+                          group=group)
+        self.sharded_train_keys.add(key)
+        fn = self._sharded_fns.get(key)
+        if fn is None:
+            fn = self._sharded_fns[key] = sharding.make_sharded_train_step(
+                group, width=key.width, height=key.height,
+                sh_degree=key.sh_degree,
+                max_instances_per_shard=key.max_instances,
+                lambda_dssim=key.lambda_dssim,
+                update_densify_stats=key.update_densify_stats)
+        dev = _device(state)
+        if dev.type == "cpu" or distributed.backend(group) != "nccl":
+            return fn(state, opt, camera, gt_image, bg, low_pass, xyz_lr,
+                      opt_leaves)
+
+        xs, dtypes = _step_inputs(state, opt, camera, gt_image, bg, low_pass,
+                                  xyz_lr, opt_leaves)
+
+        def run(b):
+            st, op, cam, gt, bgv, lp, lr, leaves, _ = _step_args(b, 0)
+            return _step_outputs(*fn(st, op, cam, gt, bgv, lp, lr, leaves))
+
+        new_state, new_opt, (loss, l1, n_inst, overflow) = _step_results(
+            self._run(key, run, xs, dtypes, dev), state.n_alive)
+        return new_state, new_opt, sharding.ShardedAux(
             loss=loss, l1=l1, num_instances=n_inst,
             instance_overflow=overflow, n_alive=state.n_alive)
 

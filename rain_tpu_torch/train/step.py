@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from rain_tpu_torch import device as device_mod
@@ -38,25 +39,39 @@ class StepAux(NamedTuple):
     n_alive: int                  # the input state's (int or 0-d tensor)
 
 
-def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
-                opt: adam_mod.AdamState, opt_cfg_leaves: dict, xyz_lr):
-    """The step's Adam update (``adam.update``) at the step's learning
-    rates; returns (params, AdamState)."""
-    # f32 learning rates, as the JAX step's traced leaves: features_rest's
-    # is feature_lr / 20 in f32. A float is filled on the device, which
-    # rounds it to f32 as torch.tensor(v, dtype=float32) does
-    dev = params.xyz.device
-    lr = {k: device_mod.scalar(v, torch.float32, dev)
+# 1/20 in f32: rain_tpu's jitted ``feature_lr / 20.0``
+# (rain_tpu/train/step.py:89) is compiled by XLA into a product with the
+# constant's f32 reciprocal, and CUDA divides a tensor by a number the same
+# way, where the CPU divides: a product gives rain_tpu's bits on both
+FEATURE_REST_LR = float(np.float32(1.0) / np.float32(20.0))
+
+
+def learning_rates(opt_cfg_leaves: dict, xyz_lr,
+                   device: torch.device) -> gmod.GaussianParams:
+    """The step's per-leaf learning rates as 0-d f32 tensors on ``device``
+    (``xyz_lr`` as given), as the JAX step's traced leaves: a float is
+    filled on the device, which rounds it to f32 as torch.tensor(v,
+    dtype=float32) does; features_rest's is feature_lr / 20 as rain_tpu
+    compiles it (``FEATURE_REST_LR``)."""
+    lr = {k: device_mod.scalar(v, torch.float32, device)
           for k, v in opt_cfg_leaves.items()}
-    lrs = gmod.GaussianParams(
+    return gmod.GaussianParams(
         xyz=xyz_lr,
         features_dc=lr["feature_lr"],
-        features_rest=lr["feature_lr"] / 20.0,
+        features_rest=lr["feature_lr"] * FEATURE_REST_LR,
         scaling=lr["scaling_lr"],
         rotation=lr["rotation_lr"],
         opacity=lr["opacity_lr"],
     )
-    return adam_mod.update(params, grads, opt, lrs)
+
+
+def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
+                opt: adam_mod.AdamState, opt_cfg_leaves: dict, xyz_lr):
+    """The step's Adam update (``adam.update``) at the step's learning
+    rates (``learning_rates``); returns (params, AdamState)."""
+    return adam_mod.update(
+        params, grads, opt,
+        learning_rates(opt_cfg_leaves, xyz_lr, params.xyz.device))
 
 
 def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,

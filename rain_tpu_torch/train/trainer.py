@@ -21,17 +21,19 @@ group's world size): one Trainer per rank of an initialised
 ``torch.distributed`` group of world size N (parallel.distributed), every
 rank with the same scene and configuration. Rank r holds shard r of the
 parameters, Adam's moments and the densify statistics, and trains with
-parallel.sharding's step, whose flags are already reduced over the ranks,
-so every rank takes the same decisions (an overflow on any band retries
-the step on every rank). The capacity is a multiple of N (at creation, at
+parallel.sharding's step through its CompiledStep (one graph per key and
+rank on an NCCL group, the eager step on gloo), whose flags are already
+reduced over the ranks, so every rank takes the same decisions (an
+overflow on any band retries the step on every rank). The capacity is a multiple of N (at creation, at
 growth and at resume); the instance tier is per band,
 max(round_up(2·base/N, 65536), 65536); cameras are never bucketed.
 Densify rounds and capacity growth gather the whole state on every rank,
 run the single-device code there with the Trainer's seeded generator
 (the same draws on every rank) and keep shard r; the opacity reset is
 elementwise and runs on the shard. Reports and saves gather the state (a
-collective every rank joins); only rank 0 renders, logs to TensorBoard and
-writes files, as rain_tpu's process 0.
+collective every rank joins); only rank 0 renders, through the same
+CompiledStep's eval_render, logs to TensorBoard and writes files, as
+rain_tpu's process 0.
 """
 
 from __future__ import annotations
@@ -98,9 +100,9 @@ def render_whole(state, camera, bg, low_pass, scale_modifier=1.0, *,
                  width: int, height: int, sh_degree: int, max_instances: int,
                  steps: compiled.CompiledStep | None):
     """eval_render of a view through ``steps``, a CompiledStep (None: the
-    eager ``step.eval_render``, as the sharded Trainer renders), never
-    truncated: rendered at ``max_instances`` and, if that overflows, again
-    at the first ladder tier that holds the view's instances (rain_tpu
+    eager ``step.eval_render``), never truncated: rendered at
+    ``max_instances`` and, if that overflows, again at the first ladder
+    tier that holds the view's instances (rain_tpu
     shows, scores and saves the truncated image:
     rain_tpu/train/trainer.py:606-616,648-653,
     rain_tpu/scripts/render.py:110). The overflow flag is read after the
@@ -250,11 +252,11 @@ class Trainer:
         # The sharded step keeps exact sizes, as rain_tpu's
         sizes = {(c.width, c.height) for c in scene.train_cameras}
         self._bucketed = len(sizes) > 1 and not self._sharded
-        # the single-device step and its renders go through one
-        # CompiledStep (one graph per key on the card, the eager step on
-        # the CPU); its keys are rain_tpu's jit keys (``_step_keys``). The
-        # sharded step and its rank 0's renders stay eager
-        self._steps = None if self._sharded else compiled.CompiledStep()
+        # the step and the report renders go through one CompiledStep
+        # (one graph per key on the card, the eager step on the CPU; the
+        # sharded step is captured on an NCCL group and eager on gloo);
+        # its keys are rain_tpu's jit keys (``_step_keys``)
+        self._steps = compiled.CompiledStep()
         self._opt_leaves = None     # the lrs as 0-d device tensors
 
         self.iteration = 0
@@ -283,10 +285,12 @@ class Trainer:
 
     @property
     def _step_keys(self) -> set:
-        """The keys of the single-device steps run, rain_tpu's
-        ``_bucket_keys`` (one compilation each): ``compiled.train_key``'s,
-        on the CPU and on the card alike (none in a sharded run)."""
-        return set() if self._steps is None else self._steps.train_keys
+        """The keys of the steps run, one compilation each, on the CPU and
+        on the card alike: ``compiled.train_key``'s (rain_tpu's
+        ``_bucket_keys``), or in a sharded run ``compiled.sharded_key``'s
+        (rain_tpu's ``_sharded_steps``' keys with the shard's capacity)."""
+        return self._steps.sharded_train_keys if self._sharded else \
+            self._steps.train_keys
 
     def _capacity(self, cap: int) -> int:
         """``cap`` rounded up to a multiple of the ranks (the sharded step
@@ -392,15 +396,6 @@ class Trainer:
         opt, flags) with flags a _Flags on its way to the host."""
         (cam, cam_arrays, gt, bg, low_pass, xyz_lr, sh_deg, opt_leaves,
          update_stats) = args
-        if self._sharded:
-            step = sharding.make_sharded_train_step(
-                width=cam.width, height=cam.height, sh_degree=sh_deg,
-                max_instances_per_shard=self.max_instances,
-                lambda_dssim=self.opt_cfg.lambda_dssim,
-                update_densify_stats=update_stats)
-            state, opt, aux = step(self.state, self.opt_state, cam_arrays,
-                                   gt, bg, low_pass, xyz_lr, opt_leaves)
-            return state, opt, _Flags(aux)
         # every per-call value a 0-d device tensor, as rain_tpu traces it
         # (rain_tpu/train/trainer.py:292-306): fills, which do not wait
         # for the device
@@ -408,6 +403,23 @@ class Trainer:
         if self._opt_leaves is None:
             self._opt_leaves = {k: device_mod.scalar(v, f32, self.device)
                                 for k, v in opt_leaves.items()}
+        n_alive = self.state.n_alive
+        state = self.state._replace(
+            n_alive=device_mod.scalar(n_alive, i32, self.device))
+        lp = device_mod.scalar(low_pass, f32, self.device)
+        lr = device_mod.scalar(xyz_lr, f32, self.device)
+        # the graphs of outgrown capacities and tiers go (a rank's state is
+        # its shard of the capacity)
+        self._steps.retire(state.capacity * self.n_devices,
+                           self.max_instances)
+        if self._sharded:
+            state, opt, aux = self._steps.sharded_train_step(
+                state, self.opt_state, cam_arrays, gt, bg, lp, lr,
+                self._opt_leaves, width=cam.width, height=cam.height,
+                sh_degree=sh_deg, max_instances_per_shard=self.max_instances,
+                lambda_dssim=self.opt_cfg.lambda_dssim,
+                update_densify_stats=update_stats)
+            return state._replace(n_alive=n_alive), opt, _Flags(aux)
         if self._bucketed:
             width = _round_up(cam.width, 16)
             height = _round_up(cam.height, 16)
@@ -416,15 +428,9 @@ class Trainer:
         else:
             width, height = cam.width, cam.height
             real_wh = None
-        n_alive = self.state.n_alive
-        self._steps.retire(self.state.capacity, self.max_instances)
         state, opt, aux = self._steps.train_step(
-            self.state._replace(
-                n_alive=device_mod.scalar(n_alive, i32, self.device)),
-            self.opt_state, cam_arrays, gt, bg,
-            device_mod.scalar(low_pass, f32, self.device),
-            device_mod.scalar(xyz_lr, f32, self.device),
-            width=width, height=height, sh_degree=sh_deg,
+            state, self.opt_state, cam_arrays, gt, bg, lp, lr, width=width,
+            height=height, sh_degree=sh_deg,
             max_instances=self.max_instances,
             opt_cfg_leaves=self._opt_leaves,
             lambda_dssim=self.opt_cfg.lambda_dssim,

@@ -782,3 +782,29 @@ def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
         assert torch.equal(x, y)
     assert a.history == b.history
     assert len(a._steps.captures) >= 3 and not b._steps.captures
+
+
+def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
+    """Two ranks, one card each, over NCCL (launch.spawn's default for
+    cards): the sharded step through CompiledStep is captured once per rank
+    and its 5 replays each equal the eager NCCL step bit for bit on every
+    rank, with B1-B4 counted once per replay. Skips with fewer than two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: one per NCCL rank")
+    import torch_sharding_cases as cases
+    from rain_tpu_torch.parallel import launch
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.uniform(-0.8, 0.8, (80, 2)),
+                          rng.uniform(2.5, 5.0, (80, 1))], 1).astype(
+        np.float32)
+    st = gmod.create_from_pcd(pts, rng.uniform(0, 1, (80, 3)).astype(
+        np.float32), sh_degree=3, capacity=128, knn_window=16, device="cpu")
+    start = ({k: v.numpy() for k, v in st.params._asdict().items()},
+             st.n_alive)
+    ranks = launch.spawn(cases.captured_sharded_step, 2, device="cuda",
+                         timeout_s=300, args=(*start, 4096, 5))
+    for r in ranks:
+        assert r["equal"] == [True] * 5, r
+        assert (r["graphs"], r["captures"]) == (1, 1)
+        assert r["launches"] == [[1, 1, 1, 1]] * 5

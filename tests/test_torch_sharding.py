@@ -7,7 +7,9 @@ CPU, one gloo process per rank (parallel.launch.spawn).
   denom and max_radii2d exactly. D = 8 on the image's 4 tile rows leaves
   bands past the last row, which render empty and add zero.
 - At D = 2 it equals rain_tpu's sharded step on the same numpy-seeded
-  state at the same bars.
+  state at the same bars, with every per-call value a number or a 0-d
+  tensor (the same bits), and through CompiledStep.sharded_train_step,
+  which on gloo runs the eager step.
 - A tier of 256 overflows and says so; a rerun gives the same bits;
   distributed.gather_shards passes torch.autograd.gradcheck in f64.
 
@@ -103,9 +105,11 @@ def test_sharded_step_matches_single_device(n_dev, sharded, single):
     assert got["stats"]["xyz_gradient_accum"].max() > 0
 
 
-def test_sharded_step_matches_rain_tpu(start, sharded):
-    """D = 2 against rain_tpu's make_sharded_train_step on the same state
-    (8 virtual CPU devices, tests/conftest.py)."""
+@pytest.fixture(scope="module")
+def rain_tpu_d2(start):
+    """rain_tpu's make_sharded_train_step at D = 2 on the same state (8
+    virtual CPU devices, tests/conftest.py), as ``cases._numpy`` gives
+    the port's: the file's one JAX compilation."""
     arrays, n_alive = start
     js = jgmod.GaussianState(
         params=jgmod.GaussianParams(**{k: jnp.asarray(v)
@@ -120,14 +124,42 @@ def test_sharded_step_matches_rain_tpu(start, sharded):
                      jnp.asarray(cases.BG, jnp.float32),
                      jnp.asarray(cases.LOW_PASS, jnp.float32),
                      jnp.asarray(cases.XYZ_LR, jnp.float32), cases.OPT_LEAVES)
-    want = {"loss": float(aux.loss), "l1": float(aux.l1), "overflow": False,
+    return {"loss": float(aux.loss), "l1": float(aux.l1), "overflow": False,
             "params": {k: np.asarray(v)
                        for k, v in s.params._asdict().items()},
             "stats": {k: np.asarray(getattr(s, k))
                       for k in tgmod.STAT_FIELDS},
             "mu": {k: np.asarray(v) for k, v in o.mu._asdict().items()},
             "nu": {k: np.asarray(v) for k, v in o.nu._asdict().items()}}
-    _assert_step_matches(sharded(2), want, "D=2 vs rain_tpu's sharded step")
+
+
+def test_sharded_step_matches_rain_tpu(sharded, rain_tpu_d2):
+    """D = 2 against rain_tpu's make_sharded_train_step on the same
+    state."""
+    _assert_step_matches(sharded(2), rain_tpu_d2,
+                         "D=2 vs rain_tpu's sharded step")
+
+
+def test_sharded_step_takes_device_values(start, sharded, rain_tpu_d2):
+    """At D = 2, n_alive (int32), low_pass, xyz_lr and the four lrs (f32)
+    as 0-d tensors, as rain_tpu traces them and as the compiled step feeds
+    its graphs, give the bits of the same step fed numbers on every rank,
+    and so does CompiledStep.sharded_train_step, which runs the eager step
+    on gloo and captures nothing; the whole result equals the step of
+    ``sharded`` (xyz_lr a tensor, the rest numbers) bit for bit and
+    rain_tpu's at its bars."""
+    ranks = launch.spawn(cases.sharded_step_values, 2, device="cpu",
+                         timeout_s=TIMEOUT_S, args=(*start, TIER))
+    for r in ranks:
+        d = r["digests"]
+        assert d["tensors"] == d["numbers"] == d["compiled"], d
+        assert (r["graphs"], r["captures"]) == (0, 0)
+        assert len(r["keys"]) == 1
+    whole = ranks[0]["whole"]
+    assert cases.digest(whole["tensors"]) == cases.digest(
+        whole["numbers"]) == cases.digest(sharded(2))
+    _assert_step_matches(whole["tensors"], rain_tpu_d2,
+                         "D=2, device values, vs rain_tpu's sharded step")
 
 
 def test_sharded_step_reruns_bitwise(start, sharded):

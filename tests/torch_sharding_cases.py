@@ -109,6 +109,95 @@ def sharded_step(rank, device, arrays, n_alive, tier):
     return _numpy(s, o, aux) if rank == 0 else None
 
 
+def _device_values(state, device):
+    """(state with n_alive a 0-d int32, low_pass, xyz_lr, the four lrs as
+    0-d f32) on ``device``: every per-call value as rain_tpu traces it."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+    return (state._replace(n_alive=torch.tensor(
+        state.n_alive, dtype=torch.int32, device=device)), f32(LOW_PASS),
+        f32(XYZ_LR), {k: f32(v) for k, v in OPT_LEAVES.items()})
+
+
+def sharded_step_values(rank, device, arrays, n_alive, tier):
+    """One sharded step from the state of ``arrays``, three ways: every
+    per-call value a number; each a 0-d tensor on ``device``
+    (``_device_values``); and through train.compiled.CompiledStep's
+    sharded_train_step with those tensors. Returns on every rank the digest
+    of each run's shard results, the CompiledStep's graph and capture
+    counts and its keys; on rank 0 also the whole results (``_numpy``) of
+    the number and the tensor runs."""
+    from rain_tpu_torch.train import compiled
+    state, opt, cam, gt, bg = step_inputs(arrays, n_alive, device)
+    world = distributed.world_size()
+    s = sharding.shard_state(state, rank, world)
+    o = sharding.shard_opt(opt, rank, world)
+    kw = dict(width=W, height=H, sh_degree=3, max_instances_per_shard=tier,
+              update_densify_stats=True)
+    step = sharding.make_sharded_train_step(**kw)
+    st, low_pass, xyz_lr, leaves = _device_values(s, device)
+    steps = compiled.CompiledStep()
+    runs = {"numbers": step(s, o, cam, gt, bg, LOW_PASS, XYZ_LR, OPT_LEAVES),
+            "tensors": step(st, o, cam, gt, bg, low_pass, xyz_lr, leaves),
+            "compiled": steps.sharded_train_step(
+                st, o, cam, gt, bg, low_pass, xyz_lr, leaves, **kw)}
+    whole = {k: _numpy(sharding.gather_state(runs[k][0]),
+                       sharding.gather_opt(runs[k][1]), runs[k][2])
+             for k in ("numbers", "tensors")}
+    return {"digests": {k: digest(_numpy(*r)) for k, r in runs.items()},
+            "graphs": len(steps.graphs), "captures": len(steps.captures),
+            "keys": [tuple(k) for k in steps.sharded_train_keys],
+            "whole": whole if rank == 0 else None}
+
+
+def captured_sharded_step(rank, device, arrays, n_alive, tier, replays):
+    """The sharded step of ``arrays``' state on an NCCL group, eager and
+    through a CompiledStep: its first call (the warm-up, then the capture),
+    then ``replays`` replays of the same inputs, each held to the eager
+    step bit for bit on this rank's shard. Returns on every rank (the
+    replays equal to the eager step, graphs, captures, B1-B4's launches
+    per compiled call, the eager step's digest)."""
+    from rain_tpu_torch.train import compiled
+    state, opt, cam, gt, bg = step_inputs(arrays, n_alive, device)
+    world = distributed.world_size()
+    st, low_pass, xyz_lr, leaves = _device_values(
+        sharding.shard_state(state, rank, world), device)
+    args = (st, sharding.shard_opt(opt, rank, world), cam, gt, bg, low_pass,
+            xyz_lr, leaves)
+    kw = dict(width=W, height=H, sh_degree=3, max_instances_per_shard=tier,
+              update_densify_stats=True)
+    want = sharding.make_sharded_train_step(**kw)(*args)
+    flat = _step_tensors(want)
+    steps = compiled.CompiledStep()
+    steps.sharded_train_step(*args, **kw)
+    equal, launches = [], []
+    for _ in range(replays):
+        before = [f.launches for f in compiled.COUNTED]
+        got = _step_tensors(steps.sharded_train_step(*args, **kw))
+        launches.append([f.launches - n
+                         for f, n in zip(compiled.COUNTED, before)])
+        equal.append(all(_same_bits(a, b) for a, b in zip(got, flat)))
+    return {"equal": equal, "graphs": len(steps.graphs),
+            "captures": len(steps.captures), "launches": launches,
+            "digest": digest(_numpy(*want))}
+
+
+def _step_tensors(result) -> list:
+    """Every tensor of a sharded step's (state, opt, aux)."""
+    s, o, aux = result
+    return (list(s.params) + [getattr(s, k) for k in gmod.STAT_FIELDS] +
+            list(o.mu) + list(o.nu) + [o.step, aux.loss, aux.l1,
+                                       aux.num_instances,
+                                       aux.instance_overflow])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: floats through their bits."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
 # -- gradcheck of distributed.gather_shards ------------------------------
 N_ROWS = 3           # rows of each rank's shard
 _FORWARD, _BACKWARD, _STOP = 1, 2, 0
@@ -266,6 +355,43 @@ def train_toy(rank, device, devices, model_path, iterations):
     return (state.n_alive, {k: v.cpu().numpy()
                             for k, v in state.params._asdict().items()},
             tr.max_instances)
+
+
+KEYS_RUN = dict(iterations=12, densify_from_iter=3,
+                densification_interval=5, densify_until_iter=8,
+                opacity_reset_interval=10_000)
+
+
+def sharded_trainer_keys(rank, device, model_path):
+    """A Trainer of 2 ranks on a small toy scene through ``KEYS_RUN`` (a
+    densify round at 5; the statistics stop at 8) and a report at 12, its
+    CompiledStep's sharded_train_step recorded. Returns on every rank the
+    (width, height, sh_degree, max_instances_per_shard,
+    update_densify_stats) of its calls, ``_step_keys``, the eval keys,
+    graph and capture counts, the shard's capacity and lambda_dssim."""
+    from rain_tpu_torch.train import compiled
+    calls = set()
+    method = compiled.CompiledStep.sharded_train_step
+
+    def recorded(self, *a, **kw):
+        calls.add((kw["width"], kw["height"], kw["sh_degree"],
+                   kw["max_instances_per_shard"],
+                   kw["update_densify_stats"]))
+        return method(self, *a, **kw)
+
+    compiled.CompiledStep.sharded_train_step = recorded   # this rank's own
+    tr = Trainer(toy_scene(n_cams=3, n_pts=60), trainer_configs(
+        2, **KEYS_RUN), model_path, device=device, log_fn=lambda *a: None,
+        tensorboard=False)
+    tr.train(iterations=KEYS_RUN["iterations"],
+             test_iterations=(KEYS_RUN["iterations"],), save_iterations=())
+    return {"calls": sorted(calls),
+            "keys": sorted(tuple(k) for k in tr._step_keys),
+            "eval_keys": sorted(tuple(k) for k in tr._steps.eval_keys),
+            "graphs": len(tr._steps.graphs),
+            "captures": len(tr._steps.captures),
+            "shard_capacity": tr.state.capacity,
+            "lambda_dssim": tr.opt_cfg.lambda_dssim}
 
 
 def write_gate(rank, device, root):
