@@ -91,9 +91,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    and reload its PLY with n_alive rows. A second run from seed 0 (B,
    profiled over iterations 10-19) equals A's checkpoint at 25 bit for
    bit. A run E, A's loop with the compiled step's methods replaced by
-   the eager step and render, equals A bit for bit: every step's tier,
-   capacity, n_alive, loss and instances, each round's DensifyInfo, the
-   reports at 0 and 60 and the final state. At B's first step after the
+   the eager step, render, densify round and opacity reset, equals A bit
+   for bit: every step's tier, capacity, n_alive, loss and instances,
+   each round's DensifyInfo, the reports at 0 and 60 and the final
+   state. At B's first step after the
    growth (iteration 21: capacity
    786,432 with dead rows at its tail, the grown tier) B1, B3, B4 and B2
    are held against their plain versions bit for bit on that step's
@@ -105,7 +106,8 @@ Phases, in order; any failure exits non-zero before the result lines:
    every step, n_alive per round, the device's busy time per iteration
    and its idle share over B's profiled window (busy time over that
    window's host-clock time), peak memory, A's captures (key, ms) and
-   host ms per iteration and peak memory of A and E, the synchronising
+   host ms per iteration, ms per round and peak memory of A and E, the
+   synchronising
    calls of one
    step and of one bucketed step with the file:line of each (sync debug
    mode), the report frames rendered again because the training tier
@@ -220,12 +222,16 @@ Phases, in order; any failure exits non-zero before the result lines:
 12. The end-state scale, through rain_tpu_torch.scripts: bench.py's 1m
    and 4m tiers (1,048,576 and 4,194,304 Gaussians, SH degree 3 with zero
    f_rest, log-scales -5.2 and -5.9, tiers 2,097,152 and 6,291,456) at its
-   camera and 1297x840, each through probe_scale.run_tier: step 0 and 10
-   more steps, the launch counters set to 0 just before and read just
-   after (each kernel once per step, 3 profiled steps included). Checked:
-   step 0's instances are BENCH_r05.json's, 1,644,592 and 5,436,763, with
-   no overflow; B1-B4 of step 0 bit for bit against their plain versions
-   (phase 4's helpers), then timed beside their bounds. Then
+   camera and 1297x840, each through probe_scale.run_tier's compiled step
+   and then its eager one (--eager): step 0 (eager, its hook kept), a
+   second step (the capture) and 10 more, the launch counters set to 0
+   just before and read just after each run (each kernel once per step,
+   3 profiled steps included). Checked: step 0's instances are the CPU
+   path's, 1,644,591 and 5,436,762 (BENCH_r05.json's TPU run counted one
+   more), with no overflow; the compiled run's state after its steps
+   equals the eager run's bit for bit; B1-B4 of step 0 bit for bit
+   against their plain versions (phase 4's helpers), then timed beside
+   their bounds. Then
    knn_deviation's clustered cloud of 1,572,864 points: the exact search
    completes and the Morton-window search lies on no row below it by
    more than 1e-6 relative. Then sustained_growth's run (262,144 points
@@ -237,9 +243,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    overflows at the tiers 1,572,864 and 2,097,152, keep no overflowed
    step, hold alive at 1000 within 10 % of docs/runs/
    sustained_growth_r5.log's 496,434, and a train_step at its end state
-   makes no synchronising call. Recorded: per tier the first step, the
-   host median of 10 steps, the device's busy time and operations per
-   step (torch.profiler), the peak memory and each kernel's ms and bound
+   makes no synchronising call. Recorded: per tier and path the first
+   step, the second (the capture, with its key), the host median of 10
+   steps, the device's busy time and operations, the host's launch calls
+   and the copy operations' device ms per step (torch.profiler), the
+   peak memory allocated and reserved, and each kernel's ms and bound
    ms; the KNN's times and error statistics; the growth run's alive every
    50 iterations, growths, retries, rounds, host ms per iteration, peak
    memory and wall time.
@@ -264,11 +272,13 @@ Phases, in order; any failure exits non-zero before the result lines:
    no overflow; a train_step at the end state makes no synchronising
    call; the run's first 600 iterations (past the growth at 500) through
    the compiled step and through the eager one give the same steps,
-   capacity events, reports and state bit for bit. Printed beside the
-   port's, not checked: the logs' growths, final population and PSNR.
-   Recorded: host ms per iteration, wall time, peak memory, every
-   capacity growth and retry, the captures, and the 600-iteration runs'
-   host ms per iteration and peak memory.
+   capacity events, reports and state bit for bit (the rounds at 300,
+   400 and 500 compiled in the one and eager in the other). Printed
+   beside the port's, not checked: the logs' growths, final population
+   and PSNR. Recorded: host ms per iteration, wall time, peak memory,
+   every capacity growth and retry, ms per densify round (compiled), the
+   captures, and the 600-iteration runs' host ms per iteration, ms per
+   round and peak memory.
 
 14. The part-mask overlays of rain_tpu/tools/combine_masks.py
    (rain_tpu_torch.tools.combine_masks; no kernel of its own: a handful
@@ -301,9 +311,29 @@ Phases, in order; any failure exits non-zero before the result lines:
    calls from a fresh CompiledStep (the capture's included), and the
    captures (key, ms).
 
+16. The compiled densify round and opacity reset
+   (train.compiled.CompiledStep.densify_and_prune and reset_opacity: the
+   fixed-shape round of model.densify captured once per key) on phase 4's
+   perturbed 262k proxy grown to capacity 786,432, spread and given
+   statistics and Adam moments by seeded draws
+   (tests/torch_round_cases.py). Three rounds, each a replay after its
+   key's capture on other inputs and each with its own n_alive, noise and
+   scalars: one with abe_split, one with use_size_threshold, one whose
+   appends overflow the capacity (overflow set); then a reset captured
+   and replayed. Checked: every call, captures included, equals the
+   eager round or reset bit for bit (params, moments, statistics,
+   n_alive, DensifyInfo); a replayed round makes exactly one
+   synchronising call, the read of its info; no call launches B1-B4.
+   Recorded for the eager and the compiled path, round and reset: host ms
+   per call (each synchronised, median of 10), the device's busy time and
+   operations and the host's launch calls per call (torch.profiler), the
+   peak and reserved memory over a first call and two more (the capture
+   and two replays), and the captures (key, ms).
+
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
 (each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12, 13
-and 15, and its ms and bound ms at phase 12's tiers) and, last,
+and 15, and its ms and bound ms at phase 12's tiers; the rounds of
+phases 7, 9, 12, 13 and 16 launch none of B1-B4) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -578,9 +608,7 @@ def step_kernels(seen, width, height, max_instances):
 
 
 # the CUDA runtime's launch calls: kernels, graphs, copies and fills
-HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
-                     "cudaMemcpyAsync", "cudaMemsetAsync")
+HOST_LAUNCH_CALLS = probe_scale.HOST_LAUNCH_CALLS
 
 
 def device_profile(run_once, reps=3):
@@ -589,15 +617,28 @@ def device_profile(run_once, reps=3):
     overlap), the part of it in NCCL's kernels (which wait on the card for
     the other ranks), the number of device operations launched and the
     largest of them by time, and the host's launch calls
-    (HOST_LAUNCH_CALLS)."""
+    (HOST_LAUNCH_CALLS). The calls sit between two spin kernels, each
+    waited for and left out of the figures: the tracer drops some device
+    records of small kernels (a short window of them once came back with
+    none), and the spins keep such a window from being all there is. The
+    device figures of small kernels are floors."""
     from torch.profiler import ProfilerActivity, profile
+
+    def pad():
+        torch.cuda._sleep(SPIN_CYCLES // 4)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad()
         for _ in range(reps):
             run_once()
         torch.cuda.synchronize()
+        pad()
     ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA and
+           "spin_kernel" not in e.key]
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / reps
     if busy <= 0.0:
@@ -609,8 +650,8 @@ def device_profile(run_once, reps=3):
         "launches": sum(e.count for e in ops) / reps,
         "top": [[e.key[:100], e.self_device_time_total / 1e3 / reps,
                  e.count / reps] for e in ops[:12]],
-        "host_launches": sum(e.count for e in prof.key_averages()
-                             if e.key in HOST_LAUNCH_CALLS) / reps,
+        "host_launches": (sum(e.count for e in prof.key_averages()
+                              if e.key in HOST_LAUNCH_CALLS) - 2) / reps,
     }
 
 
@@ -913,16 +954,26 @@ def timed(fn, *a, **kw):
     return out, (time.perf_counter() - t) * 1e3
 
 
+def eager_round_and_reset(patches):
+    """Replace CompiledStep's densify_and_prune and reset_opacity by the
+    eager round and reset, through ``patches.setattr``."""
+    patches.setattr(compiled.CompiledStep, "densify_and_prune",
+                    lambda self, *a, **kw: densify_mod.densify_and_prune(
+                        *a, **kw))
+    patches.setattr(compiled.CompiledStep, "reset_opacity",
+                    lambda self, s, o, **kw: densify_mod.reset_opacity(s, o))
+
+
 @contextlib.contextmanager
 def recorded(capture=None, eager=False):
     """A Trainer's loop recorded while active by the wrappers of
     tests/torch_trainer_trace.py, which the Trainer tests share: every
-    step's call (the Trainer's calls of its CompiledStep, whose replays
-    never reach the step module), round, reset and growth, each round and
-    growth timed with a synchronize on each side. ``capture`` (a
-    KernelCapture) wraps the step first. ``eager`` replaces the
-    CompiledStep's methods by the eager step and render: the run the
-    compiled one is held to."""
+    step's call, round and reset (the Trainer's calls of its
+    CompiledStep, whose replays never reach the step or densify module)
+    and growth, each round and growth timed with a synchronize on each
+    side. ``capture`` (a KernelCapture) wraps the step first. ``eager``
+    replaces the CompiledStep's methods by the eager step, render, round
+    and reset: the run the compiled one is held to."""
     with TRACE.Patches() as patches:
         if eager:
             patches.setattr(compiled.CompiledStep, "train_step",
@@ -930,11 +981,12 @@ def recorded(capture=None, eager=False):
             patches.setattr(compiled.CompiledStep, "eval_render",
                             lambda self, *a, **kw: step.eval_render(*a,
                                                                     **kw))
+            eager_round_and_reset(patches)
         if capture is not None:
             patches.setattr(compiled.CompiledStep, "train_step",
                             capture.wrap(compiled.CompiledStep.train_step))
         yield TRACE.record(patches.setattr, compiled.CompiledStep,
-                           densify_mod, gmod, timer=timed)
+                           compiled.CompiledStep, gmod, timer=timed)
 
 
 @torch.no_grad()
@@ -1314,18 +1366,25 @@ def trainer_phase(arrays, out=None):
             raise AssertionError("the Trainer through its compiled step "
                                  "differs from the eager one")
         e_ms = quartiles([e["iteration_ms"][i] for i in HOST_ITERS])
+        rounds_ms = {"compiled": [r["ms"] for r in a["rounds"]],
+                     "eager": [r["ms"] for r in e["rounds"]]}
         rec["compiled_vs_eager"] = {
             "host_ms_compiled": rec["host_ms_pipeline1"],
             "host_ms_eager": e_ms, "peak_mib_compiled": peak_mib,
             "peak_mib_eager": peak_e, "captures": captures_a,
-            "step_keys": keys_a, "steps": len(a["steps"])}
+            "step_keys": keys_a, "steps": len(a["steps"]),
+            "rounds_ms_compiled": rounds_ms["compiled"],
+            "rounds_ms_eager": rounds_ms["eager"]}
         print(f"trainer: through the compiled step (A) and the eager one "
               f"(E): {len(a['steps'])} steps, rounds, reports and state "
               f"bit for bit; host ms per iteration (median, iterations "
               f"{HOST_ITERS[0]}-{HOST_ITERS[-1]}) "
               f"{rec['host_ms_pipeline1']['median']:.2f} against "
-              f"{e_ms['median']:.2f}; peak {peak_mib:.0f} and {peak_e:.0f} "
-              f"MiB; {len(captures_a)} captures (key, ms) {captures_a}")
+              f"{e_ms['median']:.2f}; ms per round (each its key's first "
+              f"call, so its capture) {rounds_ms['compiled']} against "
+              f"{rounds_ms['eager']}; peak {peak_mib:.0f} and "
+              f"{peak_e:.0f} MiB; {len(captures_a)} captures (key, ms) "
+              f"{captures_a}")
         del te, snap_a
 
         # B: the same seed, pipelined, to 25: profiled over 10 iterations,
@@ -2201,9 +2260,10 @@ def negative_offset_band():
 
 
 def eager_compiled_step(patches):
-    """Replace CompiledStep's sharded_train_step and eval_render by the
-    eager sharded step (made afresh each call, as before the step was
-    compiled) and the eager render, through ``patches.setattr``."""
+    """Replace CompiledStep's sharded_train_step, eval_render,
+    densify_and_prune and reset_opacity by the eager sharded step (made
+    afresh each call, as before the step was compiled), render, round and
+    reset, through ``patches.setattr``."""
     def sharded(self, state, opt, camera, gt, bg, low_pass, xyz_lr, leaves,
                 *, group=None, **kw):
         return sharding.make_sharded_train_step(group, **kw)(
@@ -2211,6 +2271,7 @@ def eager_compiled_step(patches):
     patches.setattr(compiled.CompiledStep, "sharded_train_step", sharded)
     patches.setattr(compiled.CompiledStep, "eval_render",
                     lambda self, *a, **kw: step.eval_render(*a, **kw))
+    eager_round_and_reset(patches)
 
 
 def tensors_digest(tensors) -> str:
@@ -2634,24 +2695,50 @@ GROWTH_CAPACITIES = ((262_144, 524_288), (524_288, 1_048_576),
 GROWTH_TIERS = (1_572_864, 2_097_152)
 
 
+# a tier's per-path figures, recorded for the compiled and the eager path
+SCALE_PATH_FIELDS = ("first_step_ms", "second_step_ms", "captures",
+                     "step_ms_median", "device_busy_ms", "device_ops",
+                     "host_launches", "copy_ms", "copy_ops", "peak_mib",
+                     "peak_reserved_mib")
+
+
 def scale_tier(name, trace_dir):
-    """Phase 12's tier ``name`` of scripts/probe_scale.py at full size:
-    run_tier's step 0 (its on_stage hook kept) and SCALE_ITERS more steps,
-    its launch counters set to 0 just before and read just after, then 3
-    steps under torch.profiler; B1-B4 of step 0 against their plain
-    versions bit for bit, then timed beside their bounds. Returns the
-    tier's record."""
+    """Phase 12's tier ``name`` of scripts/probe_scale.py at full size,
+    through run_tier's compiled step (its default) and then its eager
+    one: step 0 (eager, its on_stage hook kept), a second step alone (the
+    capture) and SCALE_ITERS more, then 3 steps under torch.profiler; the
+    launch counters set to 0 just before each run and read just after.
+    B1-B4 of the compiled run's step 0 against their plain versions bit
+    for bit, then timed beside their bounds. The two runs' end states
+    equal bit for bit. Returns the tier's record: the compiled run's (its
+    launches the whole run's, profiled steps included), with each path's
+    figures under "paths"."""
     n, m, _ = probe_scale.TIERS[name]
-    seen = {}
-    torch.cuda.synchronize()
-    reset_counts()
-    rec = probe_scale.run_tier(name, device=DEV, iters=SCALE_ITERS,
-                               trace=trace_dir, on_stage=stage_hook(seen))
-    launches = read_counts()
-    want = 1 + SCALE_ITERS + probe_scale.TRACE_STEPS
-    if launches != {k: want for k in counters()}:
-        raise AssertionError(f"{name}: launches {launches}, expected {want} "
-                             f"of each kernel")
+    seen, ends, runs, counts = {}, {}, {}, {}
+    want = 2 + SCALE_ITERS + probe_scale.TRACE_STEPS
+    for path in ("compiled", "eager"):
+        torch.cuda.synchronize()
+        reset_counts()
+        runs[path] = probe_scale.run_tier(
+            name, device=DEV, iters=SCALE_ITERS, trace=trace_dir / path,
+            on_stage=stage_hook(seen) if path == "compiled" else
+            binning_ops.no_stage_hook, compiled=path == "compiled",
+            finish=lambda s, o, p=path: ends.update({p: host_snapshot(s, o)}))
+        counts[path] = read_counts()
+        if counts[path] != {k: want for k in counters()}:
+            raise AssertionError(f"{name} {path}: launches {counts[path]}, "
+                                 f"expected {want} of each kernel")
+        torch.cuda.empty_cache()
+        if path == "compiled":
+            tier_kernels = scale_tier_kernels(name, seen)
+            seen.clear()
+    rec = runs["compiled"]
+    if runs["eager"]["instances"] != rec["instances"] or \
+            not same_bits(ends["compiled"], ends["eager"]) or \
+            len(rec["captures"]) != 1:
+        raise AssertionError(f"{name}: the compiled tier differs from the "
+                             f"eager one")
+    del ends
     cpu = probe_scale.preprocess_instances(probe_scale.build_tier_state(
         n, probe_scale.TIERS[name][2], device="cpu"))
     if rec["instances"] != cpu or rec["overflow"]:
@@ -2660,6 +2747,37 @@ def scale_tier(name, trace_dir):
             f"{rec['overflow']}) at the tier {m}; the CPU path counts {cpu}")
     rec["cpu_instances"] = cpu
     rec["bench_r05_instances"] = BENCH_R05_INSTANCES[name]
+    rec["paths"] = {p: {"launches": counts[p],
+                        **{f: r[f] for f in SCALE_PATH_FIELDS}}
+                    for p, r in runs.items()}
+    rec.update(tier_kernels, launches=counts["compiled"])
+    what = f"{name} tier ({n} Gaussians)"
+    print(f"{what}: {rec['instances']} instances at the tier {m}, as on the "
+          f"CPU path (BENCH_r05.json's TPU run: "
+          f"{BENCH_R05_INSTANCES[name]}); B1-B4 bit for bit at step 0; "
+          f"kernels (ms, bound ms) " +
+          json.dumps({k: [r["ms"], r["bound_ms"]]
+                      for k, r in rec["kernels"].items()}))
+    print(f"{what}: the compiled run's state after {want} steps equals the "
+          f"eager run's bit for bit")
+    for path, r in rec["paths"].items():
+        print(f"{what}, {path}: first step {r['first_step_ms']:.1f} ms, "
+              f"second {r['second_step_ms']:.1f} ms, host median of "
+              f"{SCALE_ITERS} steps {r['step_ms_median']:.2f} ms, device "
+              f"busy {r['device_busy_ms']:.2f} ms per step, "
+              f"{r['device_ops']:.0f} device operations, "
+              f"{r['host_launches']:.0f} host launches, copies "
+              f"{r['copy_ms']:.3f} ms, peak {r['peak_mib']:.0f} MiB "
+              f"(reserved {r['peak_reserved_mib']:.0f}), captures "
+              f"{r['captures']}")
+    return rec
+
+
+def scale_tier_kernels(name, seen):
+    """B1-B4 of a tier's step 0 (``seen``: its on_stage values) against
+    their plain versions bit for bit, then timed beside their bounds.
+    Returns {"kernels": {kernel: its row}, "work": step_kernels' work}."""
+    n, m, _ = probe_scale.TIERS[name]
     if tuple(seen) != TRAIN_STAGES:
         raise AssertionError(f"{name}: training stages seen {tuple(seen)}")
     what = f"{name} tier step 0 ({n} Gaussians)"
@@ -2676,19 +2794,7 @@ def scale_tier(name, trace_dir):
             bound_ms, bound_by = bound(nbytes, ops)
             rows[k] = {"ms": device_ms(call), "bound_ms": bound_ms,
                        "bound_by": bound_by, "max_abs_err": errs[k]}
-    del seen, kernels
-    rec.update(launches=launches, kernels=rows, work=work)
-    print(f"{what}: {rec['instances']} instances at the tier {m}, as on the "
-          f"CPU path (BENCH_r05.json's TPU run: "
-          f"{BENCH_R05_INSTANCES[name]}); B1-B4 bit for bit; kernels (ms, "
-          f"bound ms) " +
-          json.dumps({k: [r["ms"], r["bound_ms"]] for k, r in rows.items()}))
-    print(f"{what}: first step {rec['first_step_ms']:.1f} ms, host median "
-          f"of {SCALE_ITERS} steps {rec['step_ms_median']:.2f} ms, device "
-          f"busy {rec['device_busy_ms']:.2f} ms per step, "
-          f"{rec['device_ops']:.0f} device operations, peak "
-          f"{rec['peak_mib']:.0f} MiB")
-    return rec
+    return {"kernels": rows, "work": work}
 
 
 def growth_run(tmp):
@@ -2781,10 +2887,14 @@ def scale_phase(kernels):
             t: [rec[t]["kernels"][k["name"]]["ms"],
                 rec[t]["kernels"][k["name"]]["bound_ms"]]
             for t in SCALE_TIERS}
-    summary = {t: {f: rec[t][f] for f in (
-        "instances", "bench_r05_instances", "first_step_ms",
-        "step_ms_median", "device_busy_ms", "device_ops", "peak_mib")}
-        for t in SCALE_TIERS}
+    summary = {t: {"instances": rec[t]["instances"],
+                   "bench_r05_instances": rec[t]["bench_r05_instances"],
+                   **{p: {f: r[f] for f in (
+                       "second_step_ms", "step_ms_median", "device_busy_ms",
+                       "host_launches", "copy_ms", "peak_mib",
+                       "peak_reserved_mib")}
+                      for p, r in rec[t]["paths"].items()}}
+               for t in SCALE_TIERS}
     summary["knn"] = {f: knn[f] for f in ("exact_s", "morton_s", "rel_mean",
                                           "rel_max", "rows_below_bound")}
     summary["growth"] = {f: rec["growth"][f] for f in (
@@ -2858,13 +2968,16 @@ def e2e_compiled_vs_eager(scene):
                 r = e2e_long.run(scene, str(Path(tmp) / name), stop=E2E_CUT,
                                  device=DEV, log=lambda *a: None)
             t = r.pop("trainer")
-            runs[name] = (r, loop_summary(trace)["steps"],
+            loop = loop_summary(trace)
+            runs[name] = (r, loop["steps"],
                           host_snapshot(t.state, t.opt_state),
-                          [[list(k), ms] for k, ms in t._steps.captures])
+                          [[list(k), ms] for k, ms in t._steps.captures],
+                          [x["ms"] for x in loop["rounds"]])
             if name == "compiled":
                 at_cut = path_record(trainer_step_paths(t))
             del t
-    (rc, sc, hc, cc), (re_, se, he, ce) = runs["compiled"], runs["eager"]
+    (rc, sc, hc, cc, _), (re_, se, he, ce, _) = runs["compiled"], \
+        runs["eager"]
     if sc != se or rc["report0"] != re_["report0"] or \
             rc["final"] != re_["final"] or ce or not cc or \
             [e["line"] for e in rc["cap_events"]] != \
@@ -2872,18 +2985,25 @@ def e2e_compiled_vs_eager(scene):
             not same_bits(hc, he):
         raise AssertionError(f"e2e: the compiled run to {E2E_CUT} differs "
                              f"from the eager one")
+    rounds_ms = {k: runs[k][4] for k in runs}
+    if len(rounds_ms["compiled"]) != len(rounds_ms["eager"]) or \
+            not rounds_ms["compiled"]:
+        raise AssertionError(f"e2e: rounds to {E2E_CUT} {rounds_ms}")
     out = {"iterations": E2E_CUT, "steps": len(sc),
            "host_ms_per_iteration_compiled": rc["host_ms_per_iteration"],
            "host_ms_per_iteration_eager": re_["host_ms_per_iteration"],
            "peak_mib_compiled": rc["peak_mib"],
            "peak_mib_eager": re_["peak_mib"], "captures": cc,
+           "rounds_ms_compiled": rounds_ms["compiled"],
+           "rounds_ms_eager": rounds_ms["eager"],
            "step_at_cut": at_cut}
     print(f"e2e: to {E2E_CUT} through the compiled step and the eager one: "
           f"{len(sc)} steps, capacity events, reports and state bit for "
           f"bit; host ms per iteration {rc['host_ms_per_iteration']:.3f} "
           f"against {re_['host_ms_per_iteration']:.3f}; peak "
           f"{rc['peak_mib']:.0f} and {re_['peak_mib']:.0f} MiB; "
-          f"{len(cc)} captures (key, ms) {cc}")
+          f"{len(cc)} captures (key, ms) {cc}; ms per round "
+          f"{rounds_ms['compiled']} against {rounds_ms['eager']}")
     for name, r in at_cut.items():
         print(f"e2e: a step at {E2E_CUT}, {name}: host "
               f"{r['host_ms']['median']:.3f} ms ({r['queued_ms']:.3f} "
@@ -2986,10 +3106,14 @@ def e2e_phase(kernels):
     summary = {f: rec[f] for f in (
         "n_alive", "capacity", "tier", "wall_s", "host_ms_per_iteration",
         "peak_mib", "scene_s")}
+    rounds_ms = [r["ms"] for r in a["rounds"]]
     summary.update(phase_s=wall_s, steps_dispatched=steps,
                    psnr=[rec["report0"]["test"]["psnr"],
                          rec["final"]["test"]["psnr"]],
-                   growths=[g[:2] for g in growths])
+                   growths=[g[:2] for g in growths],
+                   rounds=len(rounds_ms),
+                   round_ms_compiled=quartiles(rounds_ms),
+                   round_ms_max=max(rounds_ms))
     print("e2e: " + json.dumps(summary) + f" ({nvidia_smi()})")
     del tr
     rec.update(launches=launches, steps_dispatched=steps,
@@ -3324,6 +3448,145 @@ def compiled_phase(kernels):
     return rec
 
 
+# --- 16. the compiled densify round and opacity reset --------------------
+ROUNDS = tests_module("torch_round_cases")   # seeded rounds, bitwise check
+ROUND_CAPACITY = 786_432
+ROUND_REPS = 10             # host-clock calls per path
+# the rounds held to the eager one, each a replay of its key's graph after
+# a capture on other inputs: (what, n_alive, static arguments, scalars
+# overridden); the last one's appends (every live row split, with
+# abe_split) overflow the capacity
+ROUND_CASES = (
+    ("abe_split", N_GAUSS - 3_001, dict(abe_split=True), {}),
+    ("use_size_threshold", N_GAUSS - 11_113,
+     dict(use_size_threshold=True), {}),
+    ("overflow", N_GAUSS, dict(abe_split=True),
+     dict(max_grad=1e-9, percent_dense=1e-4)),
+)
+
+
+def round_phase():
+    """Phase 16: the compiled densify round and opacity reset
+    (CompiledStep.densify_and_prune and reset_opacity) on phase 4's
+    perturbed 262k proxy grown to ROUND_CAPACITY, spread and given
+    statistics and moments by seeded draws (tests/torch_round_cases.py).
+    Each of ROUND_CASES is a replay, after its key's capture on other
+    inputs, with its own n_alive, noise and scalars; every call (captures
+    included) and a reset's capture and replay are held to the eager
+    function bit for bit. A replayed round makes exactly one
+    synchronising call, the read of its info, and no call launches B1-B4.
+    Recorded per path (eager, compiled) for the round and the reset: host
+    ms per call (synchronised, median of ROUND_REPS), the device's busy
+    time and operations and the host's launch calls per call
+    (torch.profiler), and the peak and reserved MiB over a first call and
+    two more (a fresh CompiledStep: its capture and two replays). Returns
+    the phase's record."""
+    t_phase = time.perf_counter()
+    base = gmod.grow_capacity(gmod.from_arrays(
+        **perturbed(garden_proxy_state_arrays()), device=DEV),
+        ROUND_CAPACITY)
+    steps = compiled.CompiledStep()
+    torch.cuda.synchronize()
+    counts = read_counts()
+
+    def inputs(k, n_alive, **override):
+        st, opt = ROUNDS.seeded(base, n_alive, seed=100 + k)
+        return (st, opt, ROUNDS.noise(ROUND_CAPACITY, DEV, seed=200 + k),
+                ROUNDS.scalars(k, DEV, **override))
+
+    def held(what, st, opt, noise, sc, static):
+        got = steps.densify_and_prune(
+            st._replace(n_alive=torch.full((), st.n_alive, dtype=torch.int32,
+                                           device=DEV)),
+            opt, noise, **sc, **static)
+        want = densify_mod.densify_and_prune(st, opt, noise, **sc, **static)
+        if not ROUNDS.same(got, want):
+            raise AssertionError(f"rounds: the compiled round ({what}) "
+                                 f"differs from the eager one")
+        return got[2]
+
+    infos, k = {}, 0
+    for what, n_alive, static, override in ROUND_CASES:
+        key = compiled.DensifyKey(ROUND_CAPACITY, 2,
+                                  static.get("abe_split", False),
+                                  static.get("use_size_threshold", False))
+        if key not in steps.graphs:
+            held(f"{what}, capture", *inputs(k, n_alive - 1_234), static)
+            k += 1
+        infos[what] = held(what, *inputs(k, n_alive, **override), static)
+        k += 1
+    if not infos["overflow"].overflow or any(
+            i.overflow or not (i.n_cloned and i.n_split and i.n_pruned)
+            for w, i in infos.items() if w != "overflow"):
+        raise AssertionError(f"rounds: {infos}")
+    for j in range(2):
+        st, opt = ROUNDS.seeded(base, N_GAUSS - 77 * j, seed=300 + j)
+        if not ROUNDS.same(steps.reset_opacity(st, opt),
+                           densify_mod.reset_opacity(st, opt)):
+            raise AssertionError("rounds: the compiled opacity reset "
+                                 "differs from the eager one")
+    print(f"rounds: {len(ROUND_CASES)} replayed rounds at capacity "
+          f"{ROUND_CAPACITY} and their captures, and a reset's capture and "
+          f"replay, equal the eager ones bit for bit; infos "
+          f"{json.dumps({w: i._asdict() for w, i in infos.items()})}")
+
+    st, opt, noise, sc = inputs(k, N_GAUSS - 999)
+    abe = dict(abe_split=True)
+    syncs = count_syncs(lambda: steps.densify_and_prune(st, opt, noise, **sc,
+                                                        **abe))
+    print(f"rounds: synchronising calls per replayed round {syncs}")
+    if syncs[0] != 1 or not syncs[1][0].startswith("densify.py:"):
+        raise AssertionError(f"rounds: a replayed round must wait once, to "
+                             f"read its info: {syncs}")
+    if read_counts() != counts:
+        raise AssertionError("rounds: a round or reset launched B1-B4")
+
+    paths = {
+        "round": {
+            "eager": lambda: densify_mod.densify_and_prune(
+                st, opt, noise, **sc, **abe),
+            "compiled": lambda: steps.densify_and_prune(
+                st, opt, noise, **sc, **abe)},
+        "reset": {
+            "eager": lambda: densify_mod.reset_opacity(st, opt),
+            "compiled": lambda: steps.reset_opacity(st, opt)}}
+    fresh_calls = {
+        "round": lambda c: c.densify_and_prune(st, opt, noise, **sc, **abe),
+        "reset": lambda c: c.reset_opacity(st, opt)}
+    rec = {"capacity": ROUND_CAPACITY, "infos": {
+        w: i._asdict() for w, i in infos.items()}, "syncs": syncs[0],
+        "sync_sites": syncs[1]}
+    for what, ps in paths.items():
+        rec[what] = {}
+        for name, fn in ps.items():
+            r = {"host_ms": quartiles(host_ms(fn, ROUND_REPS)[3])}
+            r.update(device_profile(fn, reps=ROUND_REPS))
+            make = fresh_calls[what] if name == "compiled" else \
+                (lambda c, f=fn: f())
+            fresh = compiled.CompiledStep()
+            r["peak_mib"], r["reserved_mib"] = memory_of(
+                lambda: [make(fresh) for _ in range(3)])
+            if name == "compiled":
+                r["capture_ms"] = fresh.captures[0][1]
+            fresh.clear()
+            del fresh
+            rec[what][name] = r
+            print(f"rounds: {what} {name}: host "
+                  f"{r['host_ms']['median']:.3f} ms, device busy "
+                  f"{r['busy_ms']:.3f} ms ({r['launches']:.0f} operations),"
+                  f" host launches {r['host_launches']:.0f}, peak "
+                  f"{r['peak_mib']:.0f} MiB (reserved "
+                  f"{r['reserved_mib']:.0f})" +
+                  (f", capture {r['capture_ms']:.1f} ms"
+                   if name == "compiled" else ""))
+    rec["captures"] = [[list(k), ms] for k, ms in steps.captures]
+    steps.clear()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"rounds: captures (key, ms) {rec['captures']}; phase "
+          f"{rec['phase_s']:.1f} s ({nvidia_smi()})")
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3609,6 +3872,9 @@ def main(out: Path | None = None):
     # --- 15. the compiled step ----------------------------------------------
     torch.cuda.empty_cache()
     compiled_rec = compiled_phase(kernels)
+    # --- 16. the compiled densify round and opacity reset -------------------
+    torch.cuda.empty_cache()
+    round_rec = round_phase()
     for k in kernels:
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
@@ -3659,6 +3925,7 @@ def main(out: Path | None = None):
         "e2e": e2e_rec,
         "tools": tools_rec,
         "compiled": compiled_rec,
+        "rounds": round_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:

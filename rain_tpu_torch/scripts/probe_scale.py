@@ -3,28 +3,39 @@
 Port of tools/probe_scale.py. Each tier is bench.py's scene
 (bench.py:58-72: uniform means in a 6 x 6 x 10 box, random colours, zero
 SH rest, one log-scale for every axis, opacity logit -1) at garden's
-images_4 resolution (1297x840), trained from bench.py's camera with
-``train_step`` at the tier's instance capacity. Per tier it reports:
+images_4 resolution (1297x840), trained from bench.py's camera at the
+tier's instance capacity through the compiled step
+(train.compiled.CompiledStep.train_step, as the tool times rain_tpu's
+jitted ``train_step``), or with ``--eager`` through the eager
+``train_step``. Per tier it reports:
 
-- the first step, on the host clock up to a synchronize (no compilation
-  here: it holds the allocator's and the libraries' first use, and the
-  kernels' nvcc build if they were not built yet);
+- the first step (step 0, always eager: it keeps its ``on_stage`` hook),
+  on the host clock up to a synchronize (no compilation here: it holds
+  the allocator's and the libraries' first use, and the kernels' nvcc
+  build if they were not built yet);
 - the step-0 instance count and overflow flag;
-- the median of ``iters`` further steps, each on the host clock up to a
-  synchronize (the tool divides one back-to-back loop by its count);
-- the peak device memory and the launches of kernels B1-B4.
+- the second step, alone: on the compiled path the key's capture (its
+  warm-up and the graph's capture; ``captures``: key and ms);
+- the median of ``iters`` further steps (replays on the compiled path),
+  each on the host clock up to a synchronize (the tool divides one
+  back-to-back loop by its count);
+- the peak device memory allocated and reserved (the graph's pool
+  included) and the launches of kernels B1-B4.
 
 Run:  python -m rain_tpu_torch.scripts.probe_scale [tier ...]
-      [--iters 10] [--trace DIR] [--device cpu]
+      [--iters 10] [--trace DIR] [--eager] [--device cpu]
 
 With no tier it runs all seven, in the tool's order. ``--trace DIR`` (the
 tool's PROBE_TRACE) profiles 3 more steps of each tier with
 torch.profiler: DIR/<tier>.json is the Chrome trace, DIR/<tier>.txt the
-table of device time by kernel, and the record gains the device's busy
-time and operations per step. A tier that runs out of device memory is
-reported as such and the probe goes on with the next. Like the port's
-other entry points it runs on the CUDA card and raises without one
-unless --device cpu.
+table of device time by kernel, and the record gains per step the
+device's busy time and operations, the host's launch calls, and the
+device time of the copy operations (on the compiled path, the copies of
+the inputs in and the outputs out, beside the step's own copies). A tier
+that runs out of device memory is reported as such and the probe goes on
+with the next, on either path. Like the port's other entry points it
+runs on the CUDA card and raises without one unless --device cpu, where
+the compiled step runs the eager one.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import projection
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.sh import rgb_to_sh_dc
+from rain_tpu_torch.train import compiled as compiled_mod
 from rain_tpu_torch.train import step as step_mod
 
 # name -> (Gaussians, instance tier, log-scale), tools/probe_scale.py:18-28
@@ -68,6 +80,10 @@ XYZ_LR = 1.6e-4                                              # bench.py:85
 OPT_LEAVES = {"feature_lr": 0.0025, "opacity_lr": 0.05,      # bench.py:79
               "scaling_lr": 0.005, "rotation_lr": 0.001}
 TRACE_STEPS = 3
+# the CUDA runtime's launch calls: kernels, graphs, copies and fills
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 class TierState(NamedTuple):
@@ -133,13 +149,17 @@ def preprocess_instances(ts: TierState) -> int:
 
 
 def train_once(ts: TierState, state, opt, max_instances: int, *,
-               on_stage=binning_ops.no_stage_hook):
-    """One bench.py step (bench.py:74-88) from (state, opt)."""
-    return step_mod.train_step(
-        state, opt, ts.camera, ts.gt, ts.bg, LOW_PASS, XYZ_LR, width=WIDTH,
-        height=HEIGHT, sh_degree=SH_DEGREE, max_instances=max_instances,
-        opt_cfg_leaves=OPT_LEAVES, update_densify_stats=True,
-        on_stage=on_stage)
+               on_stage=binning_ops.no_stage_hook, steps=None):
+    """One bench.py step (bench.py:74-88) from (state, opt): through
+    ``steps`` (a CompiledStep; it takes no hook), or eager with None."""
+    kw = dict(width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
+              max_instances=max_instances, opt_cfg_leaves=OPT_LEAVES,
+              update_densify_stats=True)
+    if steps is not None:
+        return steps.train_step(state, opt, ts.camera, ts.gt, ts.bg,
+                                LOW_PASS, XYZ_LR, **kw)
+    return step_mod.train_step(state, opt, ts.camera, ts.gt, ts.bg,
+                               LOW_PASS, XYZ_LR, on_stage=on_stage, **kw)
 
 
 def kernel_launches() -> dict:
@@ -155,10 +175,19 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _is_copy(name: str) -> bool:
+    """A device operation that copies memory: a memcpy, or a copy kernel
+    (the compiled path's multi-tensor copies in and out among them)."""
+    name = name.lower()
+    return "memcpy" in name or "copy" in name
+
+
 def _profile(run, dev, path: Path) -> dict:
     """torch.profiler over TRACE_STEPS calls of ``run``: the Chrome trace
-    and the table to ``path`` (.json, .txt); the device's busy time and
-    operations per call (on the card)."""
+    and the table to ``path`` (.json, .txt); per call (on the card) the
+    device's busy time and operations, the host's launch calls
+    (HOST_LAUNCH_CALLS) and the device time of the copy operations, with
+    each copy operation's ms and count."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -171,65 +200,89 @@ def _profile(run, dev, path: Path) -> dict:
     prof.export_chrome_trace(str(path.with_suffix(".json")))
     by = "self_device_time_total" if dev.type == "cuda" else \
         "self_cpu_time_total"
-    path.with_suffix(".txt").write_text(
-        prof.key_averages().table(sort_by=by, row_limit=40))
+    events = prof.key_averages()
+    path.with_suffix(".txt").write_text(events.table(sort_by=by,
+                                                     row_limit=40))
     if dev.type != "cuda":
         return {}
-    ops = [e for e in prof.key_averages()
+    ops = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in ops if _is_copy(e.key)]
     return {"device_busy_ms": sum(e.self_device_time_total for e in ops) /
             1e3 / TRACE_STEPS,
-            "device_ops": sum(e.count for e in ops) / TRACE_STEPS}
+            "device_ops": sum(e.count for e in ops) / TRACE_STEPS,
+            "host_launches": sum(e.count for e in events
+                                 if e.key in HOST_LAUNCH_CALLS) / TRACE_STEPS,
+            "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3 /
+            TRACE_STEPS,
+            "copy_ops": [[e.key[:100],
+                          e.self_device_time_total / 1e3 / TRACE_STEPS,
+                          e.count / TRACE_STEPS] for e in copies]}
 
 
 def run_tier(name: str, *, device=None, iters: int = 10, trace=None,
-             on_stage=binning_ops.no_stage_hook, log_fn=print) -> dict:
-    """Step 0 and ``iters`` more steps of tier ``name``. ``on_stage`` is
-    given to step 0 (``train_step``'s hook). With ``trace`` (a
-    directory), TRACE_STEPS more steps under torch.profiler. Returns the
-    record."""
+             on_stage=binning_ops.no_stage_hook, log_fn=print,
+             compiled: bool = True, finish=None) -> dict:
+    """Step 0 (eager, with ``on_stage``, ``train_step``'s hook), then for
+    ``iters`` > 0 a second step timed alone (on the compiled path the
+    capture) and ``iters`` more steps of tier ``name``, through a CompiledStep of its own (``compiled``)
+    or the eager step. With ``trace`` (a directory), TRACE_STEPS more
+    steps under torch.profiler. ``finish(state, opt)``, if given, gets the
+    state after the last step. Returns the record."""
     dev = device_mod.resolve(device)
     n, m, log_scale = TIERS[name]
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     ts = build_tier_state(n, log_scale, device=dev)
     cur = {"state": ts.state, "opt": ts.opt}
+    steps = compiled_mod.CompiledStep() if compiled else None
 
-    def one(hook=binning_ops.no_stage_hook):
+    def one(hook=None):
         cur["state"], cur["opt"], aux = train_once(
-            ts, cur["state"], cur["opt"], m, on_stage=hook)
+            ts, cur["state"], cur["opt"], m,
+            on_stage=hook or binning_ops.no_stage_hook,
+            steps=None if hook else steps)
         return aux
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return out, (time.perf_counter() - t) * 1e3
 
     before = kernel_launches()
     _sync(dev)
-    t = time.perf_counter()
-    aux = one(on_stage)
-    _sync(dev)
-    first_ms = (time.perf_counter() - t) * 1e3
+    aux, first_ms = timed(lambda: one(on_stage))
     instances = int(aux.num_instances)
     overflow = bool(aux.instance_overflow)
-    times = []
-    for _ in range(iters):
-        t = time.perf_counter()
-        one()
-        _sync(dev)
-        times.append((time.perf_counter() - t) * 1e3)
+    second_ms = timed(one)[1] if iters else None
+    times = [timed(one)[1] for _ in range(iters)]
     after = kernel_launches()
     rec = {"tier": name, "n": n, "max_instances": m,
            "width": WIDTH, "height": HEIGHT, "device": str(dev),
+           "path": "compiled" if compiled else "eager",
            "instances": instances, "overflow": overflow,
-           "first_step_ms": first_ms,
+           "first_step_ms": first_ms, "second_step_ms": second_ms,
+           "captures": [] if steps is None else
+           [[list(k), ms] for k, ms in steps.captures],
            "step_ms_median": float(np.median(times)) if times else None,
            "step_ms": times,
-           "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
-                        if dev.type == "cuda" else None),
            "launches": {k: after[k] - before[k] for k in after}}
     if trace is not None:
         rec.update(_profile(one, dev, Path(trace) / name))
-    log_fn(f"[{name}] n={n} M={m} instances={instances} overflow={overflow} "
-           f"first={first_ms:.1f}ms step={rec['step_ms_median']}ms "
-           f"peak={rec['peak_mib']}MiB launches={json.dumps(rec['launches'])}"
-           f" on {dev}")
+    rec["peak_mib"], rec["peak_reserved_mib"] = (
+        (torch.cuda.max_memory_allocated(dev) / 2**20,
+         torch.cuda.max_memory_reserved(dev) / 2**20)
+        if dev.type == "cuda" else (None, None))
+    if finish is not None:
+        finish(cur["state"], cur["opt"])
+    if steps is not None:
+        steps.clear()
+    log_fn(f"[{name}] {rec['path']} n={n} M={m} instances={instances} "
+           f"overflow={overflow} first={first_ms:.1f}ms "
+           f"second={second_ms}ms step={rec['step_ms_median']}ms "
+           f"peak={rec['peak_mib']}MiB (reserved {rec['peak_reserved_mib']}"
+           f") launches={json.dumps(rec['launches'])} on {dev}")
     return rec
 
 
@@ -241,6 +294,9 @@ def _parser():
                    help="steps timed after step 0")
     p.add_argument("--trace", type=Path, default=None,
                    help="write a torch.profiler trace of each tier here")
+    p.add_argument("--eager", action="store_true",
+                   help="step through the eager train_step, not the "
+                   "compiled one")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--out", type=Path, default=None,
@@ -259,9 +315,11 @@ def main(argv=None) -> list[dict]:
     for name in args.tiers or list(TIERS):
         try:
             rec = run_tier(name, device=dev, iters=args.iters,
-                           trace=args.trace)
+                           trace=args.trace, compiled=not args.eager)
         except torch.OutOfMemoryError as exc:
-            rec = {"tier": name, "out_of_memory": str(exc).splitlines()[0]}
+            rec = {"tier": name, "path": "eager" if args.eager else
+                   "compiled",
+                   "out_of_memory": str(exc).splitlines()[0]}
             print(f"[{name}] out of device memory: {rec['out_of_memory']}",
                   flush=True)
         records.append(rec)

@@ -1,12 +1,15 @@
-"""The compiled step: ``train_step``, ``eval_render`` and the sharded
-step captured once per key and replayed as CUDA graphs.
+"""The compiled step: ``train_step``, ``eval_render``, the sharded step,
+the densify round and the opacity reset captured once per key and
+replayed as CUDA graphs.
 
 The counterpart of rain_tpu's compilation (rain_tpu/train/step.py:32-35,
-102-104, rain_tpu/parallel/sharding.py:271-290): rain_tpu jits all three,
-keyed by their static arguments and the shapes, with every value that
-changes from call to call traced as a device input of the one compiled
-program. Here the program is a ``torch.cuda.CUDAGraph`` of the unchanged
-eager step (train.step, parallel.sharding), and the per-call values are
+102-104, rain_tpu/parallel/sharding.py:271-290,
+rain_tpu/model/densify.py:73,144-147): rain_tpu jits all five, keyed by
+their static arguments and the shapes, with every value that changes from
+call to call traced as a device input of the one compiled program. Here
+the program is a ``torch.cuda.CUDAGraph`` of the unchanged eager function
+(train.step, parallel.sharding, model.densify's fixed-shape
+``densify_round`` and ``reset_logits``), and the per-call values are
 device inputs of the graph:
 
 - **Key.** ``train_key``: width, height, sh_degree, max_instances,
@@ -15,8 +18,11 @@ device inputs of the graph:
   max_instances and the capacity; ``sharded_key``: width, height,
   sh_degree, the tier per shard, lambda_dssim, update_densify_stats, the
   world size, the rank and the shard's capacity (the sharded step of each
-  key is made once, as rain_tpu/train/trainer.py:272-283 caches it). The
-  inputs' shapes follow from the key; an input of another shape raises
+  key is made once, as rain_tpu/train/trainer.py:272-283 caches it);
+  ``DensifyKey``: the capacity, n_split, abe_split and
+  use_size_threshold (rain_tpu's static arguments); ``ResetKey``: the
+  capacity and the shards the whole state is split into. The inputs'
+  shapes follow from the key; an input of another shape raises
   ValueError.
 - **Capture.** The first call of a key copies its inputs into static
   buffers, runs the eager step on them once on a side stream (the
@@ -35,20 +41,27 @@ device inputs of the graph:
   update_densify_stats is False) is the caller's input, as the eager step
   returns it. No call waits for the device.
 - **Per-call values.** ``low_pass``, ``xyz_lr``, ``scale_modifier``, the
-  four ``opt_cfg_leaves`` (f32), ``real_wh`` and ``state.n_alive`` (int32)
-  are 0-d device tensors or numbers, filled into their buffers either way;
-  the camera, ground truth, background, state and Adam state are copied.
+  four ``opt_cfg_leaves``, the round's six thresholds (f32), ``real_wh``
+  and ``state.n_alive`` (int32) are 0-d device tensors or numbers, filled
+  into their buffers either way; the camera, ground truth, background,
+  state, Adam state and split noise are copied. The reset copies in the
+  opacity alone, the one leaf it reads.
+- **The round's one read.** ``densify_and_prune`` returns what
+  model.densify's does: it reads the round's packed info once (the
+  round's only wait for the device, as rain_tpu's Trainer reads
+  ``info.overflow`` once) and gives the new state a Python n_alive.
 - **Launch counters.** A replay adds to B1–B4's ``launches`` the
   launches its capture recorded; the capture itself adds none, and the
   warm-up counts as the eager step it is: one count per call and kernel.
 - **Memory.** All graphs of one CompiledStep share one memory pool, and
   the graphs whose inputs have the same shapes share their input buffers.
-  ``retire`` drops the graphs of keys whose capacity or tier has been
-  outgrown, returning their memory to the pool (or, with the last graph,
-  releasing the pool).
+  ``retire`` drops the graphs of keys whose capacity, or tier where the
+  key has one, has been outgrown, returning their memory to the pool (or,
+  with the last graph, releasing the pool).
 
 Which path runs: a state on the CPU runs the eager step, as the kernel
-wrappers run their plain versions there. The sharded step is captured on
+wrappers run their plain versions there. The round and the reset hold
+no collective: a state on the card captures them whatever the group. The sharded step is captured on
 a group whose backend is NCCL, with the state on the card: its
 collectives (the gathers, the rank-ordered reduce-scatter of the gathers'
 backward, the all-reduces) are captured with the rest. Every rank
@@ -59,7 +72,7 @@ communicator before any capture. On a gloo group it runs the eager step:
 gloo's collectives are host calls, which a graph cannot hold. The rule is
 the group's backend, not a fallback: a capture that fails on NCCL raises.
 The key is recorded on every path (``train_keys``, ``eval_keys``,
-``sharded_train_keys``). No ``on_stage`` hook: the hooks stay on the
+``sharded_train_keys``, ``densify_keys``, ``reset_keys``). No ``on_stage`` hook: the hooks stay on the
 eager step. ``clear`` drops every graph, which an NCCL group's
 communicator must outlive.
 """
@@ -72,6 +85,7 @@ from typing import NamedTuple
 import torch
 
 from rain_tpu_torch.model import adam as adam_mod
+from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import render as render_ops
@@ -85,6 +99,9 @@ COUNTED = (expand_ops.expand_instances, expand_ops.reduce_instances,
            tile_render.composite_forward, tile_render.composite_backward)
 CAMERA = ("world_view", "full_proj", "camera_center", "tanfovx", "tanfovy")
 OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
+# the densify round's per-call thresholds, f32
+ROUND_SCALARS = ("max_grad", "min_opacity", "extent", "percent_dense",
+                 "divide_ratio", "size_threshold")
 
 
 class TrainKey(NamedTuple):
@@ -116,6 +133,18 @@ class ShardedKey(NamedTuple):
     world: int
     rank: int
     capacity: int            # the shard's
+
+
+class DensifyKey(NamedTuple):
+    capacity: int
+    n_split: int
+    abe_split: bool
+    use_size_threshold: bool
+
+
+class ResetKey(NamedTuple):
+    capacity: int            # the state's: a shard's in a sharded run
+    world: int               # the shards of the whole state
 
 
 def train_key(state: gmod.GaussianState, *, width: int, height: int,
@@ -153,9 +182,9 @@ def sharded_key(state: gmod.GaussianState, *, width: int, height: int,
 
 
 def _whole_capacity(key) -> int:
-    """The capacity of the whole state a key's graph steps or renders."""
-    return key.capacity * key.world if isinstance(key, ShardedKey) else \
-        key.capacity
+    """The capacity of the whole state a key's graph steps, renders,
+    densifies or resets: a shard's times the shards."""
+    return key.capacity * getattr(key, "world", 1)
 
 
 def capture_mode() -> str:
@@ -344,9 +373,9 @@ def _step_results(outputs, n_alive) -> tuple:
 
 
 class CompiledStep:
-    """``train_step`` and ``eval_render`` of train.step, and the sharded
-    step of parallel.sharding, each key captured once into a CUDA graph
-    (see the module docstring). One instance holds one memory pool for all
+    """``train_step`` and ``eval_render`` of train.step, the sharded step
+    of parallel.sharding, and model.densify's round and opacity reset,
+    each key captured once into a CUDA graph (see the module docstring). One instance holds one memory pool for all
     its graphs: one per Trainer, or per render CLI run. ``captures`` lists
     (key, warm-up and capture ms) in order."""
 
@@ -355,6 +384,8 @@ class CompiledStep:
         self.train_keys = set()
         self.eval_keys = set()
         self.sharded_train_keys = set()
+        self.densify_keys = set()
+        self.reset_keys = set()
         self.captures = []
         self._pool = None
         # static input buffers, shared by the graphs whose inputs have the
@@ -387,14 +418,14 @@ class CompiledStep:
 
     def retire(self, capacity: int, max_instances: int) -> None:
         """Drop the graphs of keys below the whole capacity ``capacity``
-        (a sharded key's shard capacity times its ranks) or below the tier
-        ``max_instances``: a Trainer's capacity and tier only grow. A pool
-        left without a graph is released, and the next capture starts
-        another (a pool's handle is not reused once its last graph is
-        gone)."""
+        (a shard's key's capacity times its shards) or, for the keys with
+        a tier, below the tier ``max_instances``: a Trainer's capacity and
+        tier only grow. A pool left without a graph is released, and the
+        next capture starts another (a pool's handle is not reused once
+        its last graph is gone)."""
         def outgrown(k):
             return _whole_capacity(k) < capacity or \
-                k.max_instances < max_instances
+                getattr(k, "max_instances", max_instances) < max_instances
         for key in [k for k in self.graphs if outgrown(k)]:
             del self.graphs[key]
         self._sharded_fns = {k: f for k, f in self._sharded_fns.items()
@@ -530,6 +561,82 @@ class CompiledStep:
             return list(step_mod.eval_render(st, cam, bgv, lp, sm, **kw))
 
         return render_ops.RenderOutput(*self._run(key, run, xs, dtypes, dev))
+
+
+    def densify_and_prune(self, state: gmod.GaussianState,
+                          opt: adam_mod.AdamState, noise: torch.Tensor, *,
+                          max_grad, min_opacity, extent, percent_dense,
+                          divide_ratio, size_threshold=20.0,
+                          use_size_threshold: bool = False, n_split: int = 2,
+                          abe_split: bool = False):
+        """``densify.densify_and_prune`` (same arguments, same results: a
+        new state with a Python n_alive, Adam's state and a DensifyInfo
+        of Python numbers), its round replayed from the key's graph on the
+        card. The info's read is the call's one wait for the device."""
+        key = DensifyKey(state.capacity, int(n_split), bool(abe_split),
+                         bool(use_size_threshold))
+        self.densify_keys.add(key)
+        static = dict(n_split=key.n_split, abe_split=key.abe_split,
+                      use_size_threshold=key.use_size_threshold)
+        scalars = dict(max_grad=max_grad, min_opacity=min_opacity,
+                       extent=extent, percent_dense=percent_dense,
+                       divide_ratio=divide_ratio,
+                       size_threshold=size_threshold)
+        dev = _device(state)
+        if dev.type == "cpu":
+            return densify_mod.densify_and_prune(state, opt, noise,
+                                                 **scalars, **static)
+
+        xs, dtypes = _flat(
+            (list(state.params), None),
+            ([getattr(state, k) for k in gmod.STAT_FIELDS], None),
+            ([state.n_alive], torch.int32),
+            (list(opt.mu) + list(opt.nu) + [opt.step, noise], None),
+            ([scalars[k] for k in ROUND_SCALARS], torch.float32))
+
+        def run(b):
+            take = _taker(b)
+            st = _state(take, with_stats=True)
+            op = _opt(take)
+            nz, = take(1)
+            sc = dict(zip(ROUND_SCALARS, take(len(ROUND_SCALARS))))
+            new, new_op, info = densify_mod.densify_round(st, op, nz, **sc,
+                                                          **static)
+            return (list(new.params) +
+                    [getattr(new, k) for k in gmod.STAT_FIELDS] +
+                    list(new_op.mu) + list(new_op.nu) + [new_op.step, info])
+
+        take = _taker(self._run(key, run, xs, dtypes, dev))
+        params = gmod.GaussianParams(*take(N_PARAMS))
+        stats = take(len(gmod.STAT_FIELDS))
+        new_opt = _opt(take)
+        info = densify_mod.unpack_info(*take(1))
+        return gmod.GaussianState(params, info.n_alive, *stats), new_opt, info
+
+    def reset_opacity(self, state: gmod.GaussianState,
+                      opt: adam_mod.AdamState, *, world: int = 1):
+        """``densify.reset_opacity`` (same results), replayed from the
+        key's graph on the card: the opacity copied in, its reset logits
+        and zero moments out. ``world``: the shards the whole state is
+        split into, of which ``state`` is one (``retire`` compares the
+        whole capacity)."""
+        key = ResetKey(state.capacity, int(world))
+        self.reset_keys.add(key)
+        dev = _device(state)
+        if dev.type == "cpu":
+            return densify_mod.reset_opacity(state, opt)
+
+        def run(b):
+            op, = b
+            return [densify_mod.reset_logits(op), torch.zeros_like(op),
+                    torch.zeros_like(op)]
+
+        opacity, mu, nu = self._run(key, run, [state.params.opacity], [None],
+                                    dev)
+        params = state.params._replace(opacity=opacity)
+        return state._replace(params=params), adam_mod.AdamState(
+            mu=opt.mu._replace(opacity=mu), nu=opt.nu._replace(opacity=nu),
+            step=opt.step)
 
 
 def _device(state: gmod.GaussianState) -> torch.device:

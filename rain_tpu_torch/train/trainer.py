@@ -29,8 +29,9 @@ growth and at resume); the instance tier is per band,
 max(round_up(2·base/N, 65536), 65536); cameras are never bucketed.
 Densify rounds and capacity growth gather the whole state on every rank,
 run the single-device code there with the Trainer's seeded generator
-(the same draws on every rank) and keep shard r; the opacity reset is
-elementwise and runs on the shard. Reports and saves gather the state (a
+(the same draws on every rank; the round through the CompiledStep, as on
+one device) and keep shard r; the opacity reset is elementwise and runs
+on the shard. Reports and saves gather the state (a
 collective every rank joins); only rank 0 renders, through the same
 CompiledStep's eval_render, logs to TensorBoard and writes files, as
 rain_tpu's process 0.
@@ -52,7 +53,6 @@ from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.data.dataset import SceneData
 from rain_tpu_torch.eval.lpips import lpips_fn_or_none
 from rain_tpu_torch.model import adam as adam_mod
-from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.parallel import distributed
@@ -252,10 +252,11 @@ class Trainer:
         # The sharded step keeps exact sizes, as rain_tpu's
         sizes = {(c.width, c.height) for c in scene.train_cameras}
         self._bucketed = len(sizes) > 1 and not self._sharded
-        # the step and the report renders go through one CompiledStep
-        # (one graph per key on the card, the eager step on the CPU; the
-        # sharded step is captured on an NCCL group and eager on gloo);
-        # its keys are rain_tpu's jit keys (``_step_keys``)
+        # the step, the report renders, the densify rounds and the opacity
+        # resets go through one CompiledStep (one graph per key on the
+        # card, the eager functions on the CPU; the sharded step is
+        # captured on an NCCL group and eager on gloo); its keys are
+        # rain_tpu's jit keys (``_step_keys``)
         self._steps = compiled.CompiledStep()
         self._opt_leaves = None     # the lrs as 0-d device tensors
 
@@ -626,8 +627,10 @@ class Trainer:
                 use_size = iteration > opt_cfg.opacity_reset_interval
                 abe = iteration <= self.rain.warmup_iter
                 noise = self._split_noise(state.capacity)
+                # the round's one wait for the device: the read of its info
+                # (rain_tpu/train/trainer.py:540)
                 state, opt, info = \
-                    densify_mod.densify_and_prune(
+                    self._steps.densify_and_prune(
                         state, opt, noise,
                         max_grad=opt_cfg.densify_grad_threshold,
                         min_opacity=0.005,
@@ -646,8 +649,8 @@ class Trainer:
                     (self.model.white_background and
                      iteration == opt_cfg.densify_from_iter)):
                 self.flush_pending()
-                self.state, self.opt_state = densify_mod.reset_opacity(
-                    self.state, self.opt_state)
+                self.state, self.opt_state = self._steps.reset_opacity(
+                    self.state, self.opt_state, world=self.n_devices)
 
             if iteration % self.system.log_every == 0 or \
                     iteration == iterations:

@@ -21,6 +21,10 @@ traces it, and the keys it compiles by.
   ``_bucket_keys``, made by ``compiled.train_key`` as on the card.
 - The inputs the Trainer hands the compiled step hold no Python number
   that changes between iterations: what changes is a device tensor.
+- ``densify_and_prune`` and ``reset_opacity`` through CompiledStep on a
+  CPU state (seeded by tests/torch_round_cases.py) equal model.densify's
+  bit for bit, with the scalars as 0-d tensors and as numbers; their
+  keys; ``retire`` drops their keys by capacity alone.
 
 Two JAX compilations (rain_tpu's step at the exact size and bucketed).
 """
@@ -40,6 +44,8 @@ from rain_tpu_torch.train import step as tstep
 from test_torch_render import BG, CAM, H, M, W, _raw_scene
 from test_torch_trainer_port import configs, trainer
 import test_torch_train_step as base
+import torch_round_cases as rounds
+from rain_tpu_torch.model import densify as tdens
 
 torch.set_num_threads(1)
 
@@ -259,3 +265,67 @@ def test_copy_groups_dtypes_and_fills_numbers():
     assert dst[1].dtype == torch.int32 and int(dst[1]) == 7
     assert dst[2].tolist() == [5, 6]
     assert float(dst[3]) == 0.25 and int(dst[4]) == 9
+
+
+@pytest.mark.parametrize("abe_split,use_size_threshold",
+                         [(True, False), (False, True)])
+def test_densify_and_prune_on_the_cpu_equals_the_eager_round(
+        abe_split, use_size_threshold):
+    arrays = _raw_scene(3)
+    state = tgmod.from_arrays(**arrays, capacity=900, device="cpu")
+    steps = compiled.CompiledStep()
+    for k, n_alive in enumerate((300, 280)):
+        st, opt = rounds.seeded(state, n_alive, seed=k)
+        noise = rounds.noise(900, "cpu", seed=10 + k)
+        sc = rounds.scalars(k, "cpu", extent=10.0)
+        static = dict(abe_split=abe_split,
+                      use_size_threshold=use_size_threshold)
+        before = rounds.host((st, opt))
+        got = steps.densify_and_prune(
+            st._replace(n_alive=torch.tensor(n_alive, dtype=torch.int32)),
+            opt, noise, **sc, **static)
+        want = tdens.densify_and_prune(
+            st, opt, noise, **{n: float(v) for n, v in sc.items()},
+            **static)
+        assert isinstance(got[0].n_alive, int) and got[2] == want[2]
+        assert want[2].n_split > 0 and want[2].n_cloned > 0 and \
+            want[2].n_pruned > want[2].n_split
+        assert rounds.same(got, want)
+        assert all(np.array_equal(a, b) for a, b in zip(
+            before, rounds.host((st, opt))))     # inputs untouched
+    assert steps.densify_keys == {compiled.DensifyKey(
+        900, 2, abe_split, use_size_threshold)}
+    assert steps.graphs == {} and steps.captures == []
+
+
+def test_reset_opacity_on_the_cpu_equals_the_eager_reset():
+    state = tgmod.from_arrays(**_raw_scene(3), capacity=900, device="cpu")
+    st, opt = rounds.seeded(state, 300, seed=4)
+    steps = compiled.CompiledStep()
+    got = steps.reset_opacity(st, opt, world=2)
+    want = tdens.reset_opacity(st, opt)
+    assert rounds.same(got, want)
+    assert float(torch.sigmoid(got[0].params.opacity).max()) <= 0.0101
+    assert steps.reset_keys == {compiled.ResetKey(900, 2)}
+    assert steps.graphs == {}
+
+
+def test_retire_drops_outgrown_round_and_reset_keys():
+    """Keys without a tier (the round's, the reset's) are outgrown by their
+    whole capacity alone: a reset key of a shard by its capacity times its
+    shards."""
+    steps = compiled.CompiledStep()
+    keys = [compiled.DensifyKey(1024, 2, True, False),
+            compiled.DensifyKey(2048, 2, False, True),
+            compiled.ResetKey(1024, 1), compiled.ResetKey(512, 2),
+            compiled.ResetKey(512, 4),
+            compiled.TrainKey(64, 48, 0, 8192, 0.2, True, 2048, False)]
+    steps.graphs = {k: SimpleNamespace(kind=(type(k), k.capacity))
+                    for k in keys}
+    steps._buffers = {(type(k), k.capacity): [] for k in keys}
+    steps.retire(2048, 8192)
+    assert set(steps.graphs) == {keys[1], keys[4], keys[5]}
+    steps.retire(2048, 12288)             # the tier: the step's key only
+    assert set(steps.graphs) == {keys[1], keys[4]}
+    steps.retire(4096, 12288)
+    assert steps.graphs == {} and steps._buffers == {}

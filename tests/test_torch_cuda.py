@@ -23,6 +23,7 @@ from torch_expand_cases import CASES, expand_case
 from torch_reduce_cases import CASES as REDUCE_CASES
 from torch_step_kernels import compare_backward, compare_forward
 from torch_reduce_cases import reduce_case
+import torch_round_cases as rounds
 
 torch.set_num_threads(1)
 
@@ -692,6 +693,102 @@ def test_compiled_replay_makes_no_synchronising_call(cuda):
     assert int(frame.num_instances) > 0
 
 
+def _round_state(device, n=2000, capacity=5000):
+    return gmod.grow_capacity(_state(device, n=n), capacity)
+
+
+@pytest.mark.parametrize("abe_split,use_size_threshold",
+                         [(True, False), (False, True)])
+def test_compiled_round_and_reset_replay_equal_eager(cuda, abe_split,
+                                                     use_size_threshold):
+    """A densify round and an opacity reset captured, then replayed at
+    other n_alive values with other noise and scalars (the last round's
+    appends overflow the capacity): each result equals the eager
+    function's on the same inputs bit for bit, the inputs are left
+    untouched, and one graph serves each key."""
+    steps = compiled.CompiledStep()
+    base = _round_state(cuda)
+    static = dict(abe_split=abe_split, use_size_threshold=use_size_threshold)
+    infos = []
+    for k, n_alive in enumerate((2000, 1900, 1713, 2000)):
+        st, opt = rounds.seeded(base, n_alive, seed=k)
+        noise = rounds.noise(base.capacity, cuda, seed=20 + k)
+        over = dict(max_grad=1e-9, percent_dense=1e-4) if k == 3 else {}
+        sc = rounds.scalars(k, cuda, extent=5.0, **over)
+        given = rounds.leaves(st, opt) + [noise] + list(sc.values())
+        before = [t.clone() for t in given]
+        want = densify_mod.densify_and_prune(st, opt, noise, **sc, **static)
+        got = steps.densify_and_prune(
+            st._replace(n_alive=torch.tensor(n_alive, dtype=torch.int32,
+                                             device=cuda)),
+            opt, noise, **sc, **static)
+        assert rounds.same(got, want), k
+        assert all(torch.equal(a, b) for a, b in zip(before, given))
+        infos.append(got[2])
+        want = densify_mod.reset_opacity(st, opt)
+        got = steps.reset_opacity(st, opt)
+        assert rounds.same(got, want), k
+    assert all(i.n_cloned and i.n_split and i.n_pruned for i in infos[:3])
+    assert infos[3].overflow and not any(i.overflow for i in infos[:3])
+    assert len(steps.graphs) == 2 and len(steps.captures) == 2
+    assert steps.densify_keys == {compiled.DensifyKey(
+        5000, 2, abe_split, use_size_threshold)}
+
+
+def test_compiled_round_waits_only_to_read_its_info(cuda, monkeypatch):
+    """A replayed round, under sync debug mode "error" up to the read of
+    its info: no call before that read waits for the card, and the read
+    is the round's one synchronising call."""
+    steps = compiled.CompiledStep()
+    base = _round_state(cuda)
+    reads = []
+    unpack = densify_mod.unpack_info
+
+    def read(info):
+        torch.cuda.set_sync_debug_mode("default")
+        reads.append(1)
+        return unpack(info)
+
+    monkeypatch.setattr(densify_mod, "unpack_info", read)
+    for k in range(2):
+        st, opt = rounds.seeded(base, 1900 + k, seed=k)
+        noise = rounds.noise(base.capacity, cuda, seed=k)
+        sc = rounds.scalars(k, cuda, extent=5.0)
+        torch.cuda.synchronize()
+        if k:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = steps.densify_and_prune(st, opt, noise, **sc,
+                                          abe_split=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert reads == [1, 1] and out[2].n_alive == out[0].n_alive > 0
+
+
+def test_retire_drops_round_graphs_at_a_growth(cuda):
+    """Graphs of the round and the reset at a capacity are dropped when
+    the capacity grows past it, with their buffers; the pool goes with
+    the last graph, and a capture at the grown capacity starts another."""
+    steps = compiled.CompiledStep()
+    for cap in (4096, 8192):
+        st, opt = rounds.seeded(_round_state(cuda, capacity=cap), 2000,
+                                seed=cap)
+        noise = rounds.noise(cap, cuda, seed=1)
+        sc = rounds.scalars(0, cuda, extent=5.0)
+        steps.densify_and_prune(st, opt, noise, **sc)
+        steps.reset_opacity(st, opt)
+        if cap == 4096:
+            steps.retire(4096, 1 << 20)        # no growth: kept
+            assert len(steps.graphs) == 2
+            steps.retire(8192, 1 << 20)
+            assert steps.graphs == {} and steps._buffers == {}
+            assert steps._pool is None
+    assert {k.capacity for k in steps.graphs} == {8192}
+    got = steps.densify_and_prune(st, opt, noise, **sc)     # a replay
+    assert rounds.same(got, densify_mod.densify_and_prune(st, opt, noise,
+                                                          **sc))
+
+
 def test_failed_capture_raises(cuda, tmp_path):
     """A step that waits for the card inside its capture makes the
     compiled step raise (and keep no graph): nothing carries on eagerly.
@@ -743,9 +840,10 @@ sys.exit(1)
 
 def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
     """The Trainer through its compiled step against the same run with
-    CompiledStep's methods replaced by the eager step, across an overflow
-    retry, a capacity growth and densify rounds: the same losses, n_alive
-    and state bit for bit, and a graph per key."""
+    CompiledStep's methods replaced by the eager step, render, round and
+    reset, across an overflow retry, a capacity growth and two densify
+    rounds: the same losses, rounds, n_alive and state bit for bit, and a
+    graph per key."""
     from test_torch_trainer_port import configs, make_scene
     from rain_tpu_torch.train.trainer import Trainer
     import torch_trainer_trace as trace_mod
@@ -758,8 +856,14 @@ def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
                            lambda self, *a, **kw: step.train_step(*a, **kw))
                 mp.setattr(compiled.CompiledStep, "eval_render",
                            lambda self, *a, **kw: step.eval_render(*a, **kw))
+                mp.setattr(compiled.CompiledStep, "densify_and_prune",
+                           lambda self, *a, **kw:
+                           densify_mod.densify_and_prune(*a, **kw))
+                mp.setattr(compiled.CompiledStep, "reset_opacity",
+                           lambda self, s, o, **kw:
+                           densify_mod.reset_opacity(s, o))
             trace = trace_mod.record(mp.setattr, compiled.CompiledStep,
-                                     densify_mod, gmod)
+                                     compiled.CompiledStep, gmod)
             cfgs = configs(dict(iterations=12, densify_from_iter=4,
                                 densification_interval=6,
                                 opacity_reset_interval=10_000),
@@ -774,6 +878,8 @@ def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
     (a, sa, ca), (b, sb, cb) = runs
     assert sa == sb and ca == cb
     assert any(c[0] == "grow" for c in ca) and a.max_instances > 512
+    assert sum(c[0] == "densify" for c in ca) == 2
+    assert a._steps.densify_keys and not b._steps.densify_keys
     assert a.state.n_alive == b.state.n_alive
     for x, y in zip(list(a.state.params) + list(a.opt_state.mu) +
                     list(a.opt_state.nu),

@@ -8,6 +8,13 @@ rain_tpu draws the split noise inside densify_and_prune from
 ``jax.random.normal(key, (2, C, 3))``; the port takes it as an argument,
 and JAX's own draw of that key is fed in.
 
+The six densify cases run twice: through ``densify_and_prune`` with
+Python numbers, and through the fixed-shape ``densify_round`` with
+n_alive and the six scalars as 0-d tensors, as the compiled round takes
+them. A dispatch mode shows that the round and ``reset_opacity`` read
+nothing back from the device and make no shape from data, and the
+round's output shapes follow from its key alone.
+
 Every field is compared over the whole capacity. DensifyInfo, n_alive,
 the row order, Adam's moments and the statistics are held exactly; the
 params bit for bit where no transcendental function touches them and at
@@ -24,6 +31,7 @@ up to 4.8e-7, and the offsets here are up to ~20 long (scales up to e²).
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +42,7 @@ from rain_tpu.model import gaussians as jgmod
 from rain_tpu_torch.model import adam as tadam
 from rain_tpu_torch.model import densify as tdens
 from rain_tpu_torch.model import gaussians as tgmod
+from rain_tpu_torch.train.compiled import ROUND_SCALARS
 
 torch.set_num_threads(1)
 
@@ -184,9 +193,22 @@ def _case(name):
     return js, kw
 
 
-@pytest.mark.parametrize("name", ["clone", "split", "abe", "transparent",
-                                  "size", "overflow"])
-def test_densify_and_prune_matches(name):
+CASES = ["clone", "split", "abe", "transparent", "size", "overflow"]
+
+
+def _as_tensors(state, kw):
+    """(state, kw) with n_alive a 0-d int32 tensor and the six scalars 0-d
+    f32 tensors (size_threshold at its default where kw has none)."""
+    kw = dict(kw)
+    for k in ROUND_SCALARS:
+        kw[k] = torch.tensor(kw.get(k, 20.0), dtype=torch.float32)
+    return state._replace(n_alive=torch.tensor(state.n_alive,
+                                               dtype=torch.int32)), kw
+
+
+@pytest.mark.parametrize("inputs", ["numbers", "tensors"])
+@pytest.mark.parametrize("name", CASES)
+def test_densify_and_prune_matches(name, inputs):
     js, kw = _case(name)
     jo = moments(js)
     key = jax.random.key(11)
@@ -195,7 +217,16 @@ def test_densify_and_prune_matches(name):
         jax.random.normal(key, (2, js.capacity, 3))))
     ts, to = carry(js, jo)
     before = [x.clone() for x in ts.params]
-    t2, to2, tinfo = tdens.densify_and_prune(ts, to, noise, **kw)
+    if inputs == "numbers":
+        t2, to2, tinfo = tdens.densify_and_prune(ts, to, noise, **kw)
+    else:
+        state, tkw = _as_tensors(ts, kw)
+        t2, to2, packed = tdens.densify_round(state, to, noise, **tkw)
+        assert packed.dtype == torch.int32 and packed.shape == (5,)
+        assert t2.n_alive.shape == ()
+        tinfo = tdens.unpack_info(packed)
+        assert int(t2.n_alive) == tinfo.n_alive
+        t2 = t2._replace(n_alive=tinfo.n_alive)
     assert tinfo == tdens.DensifyInfo(
         n_cloned=int(jinfo.n_cloned), n_split=int(jinfo.n_split),
         n_pruned=int(jinfo.n_pruned), n_alive=int(jinfo.n_alive),
@@ -209,6 +240,78 @@ def test_densify_and_prune_matches(name):
                 "size": (0, 0, 2, 14, False),
                 "overflow": (0, 4, 4, 16, True)}[name]
     assert tuple(tinfo) == expected
+
+
+class NoHostRead(TorchDispatchMode):
+    """Fails on an operator that reads a value back to the host or makes a
+    shape from data: ``_local_scalar_dense`` (``.item()``, ``int()``,
+    ``bool()``), ``nonzero``, ``masked_select`` and ``index`` with a bool
+    index. Records every operator it lets through."""
+
+    FORBIDDEN = (torch.ops.aten._local_scalar_dense, torch.ops.aten.nonzero,
+                 torch.ops.aten.masked_select)
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        packet = func.overloadpacket
+        if packet in self.FORBIDDEN or (
+                packet is torch.ops.aten.index and any(
+                    i is not None and i.dtype == torch.bool
+                    for i in args[1])):
+            raise AssertionError(f"{func} reads the device or makes a "
+                                 f"shape from data")
+        self.ops.add(packet)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_round_and_reset_make_no_host_read(name):
+    js, kw = _case(name)
+    ts, to = carry(js, moments(js))
+    state, kw = _as_tensors(ts, kw)
+    noise = torch.zeros(2, ts.capacity, 3)
+    mode = NoHostRead()
+    with mode:
+        tdens.densify_round(state, to, noise, **kw)
+        tdens.reset_opacity(state, to)
+    assert torch.ops.aten.searchsorted in mode.ops
+    assert torch.ops.aten.index in mode.ops     # the gathers, by int index
+    # the mode catches what the round must not do
+    for bad in (lambda: int(state.denom.sum()),
+                lambda: torch.nonzero(state.denom),
+                lambda: state.denom[state.denom > 0]):
+        with pytest.raises(AssertionError, match="reads the device"):
+            with NoHostRead():
+                bad()
+
+
+@pytest.mark.parametrize("abe_split,use_size_threshold",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)])
+def test_round_output_shapes_follow_the_key(abe_split, use_size_threshold):
+    """Rounds of one key on cases that select, append and prune different
+    rows give outputs of one set of shapes: the params' and moments' of
+    the capacity, a 0-d n_alive, a [5] info."""
+    shapes = set()
+    for name in ("clone", "split", "transparent", "size"):
+        js, kw = _case(name)
+        ts, to = carry(js, moments(js))
+        kw.update(abe_split=abe_split, use_size_threshold=use_size_threshold)
+        state, kw = _as_tensors(ts, kw)
+        s2, o2, info = tdens.densify_round(state, to, torch.zeros(
+            2, ts.capacity, 3), **kw)
+        shapes.add(tuple(tuple(x.shape) for x in (
+            list(s2.params) + [getattr(s2, k) for k in tgmod.STAT_FIELDS] +
+            list(o2.mu) + list(o2.nu) + [o2.step, s2.n_alive, info])))
+    assert len(shapes) == 1
+    (got,) = shapes
+    want = tuple(tuple(x.shape) for x in (
+        list(ts.params) + [getattr(ts, k) for k in tgmod.STAT_FIELDS] +
+        list(to.mu) + list(to.nu) + [to.step])) + ((), (5,))
+    assert got == want
 
 
 def test_densify_rejects_wrong_noise():

@@ -166,6 +166,33 @@ def test_step0_instances_match_rain_tpu(monkeypatch):
     assert rec["launches"] == dict.fromkeys(rec["launches"], 0)   # CPU
 
 
+def test_run_tier_compiled_equals_eager_on_the_cpu(monkeypatch):
+    """run_tier through the compiled step (its default) and with
+    compiled=False, at 3,000 Gaussians: the same instances and the same
+    state and Adam state after the same steps, bit for bit; on the CPU the
+    compiled step runs the eager one and captures nothing."""
+    _toy(monkeypatch, n=3000, m=8192)
+    ends = {}
+    recs = {}
+    for compiled in (True, False):
+        recs[compiled] = probe_scale.run_tier(
+            "1m", device="cpu", iters=1, log_fn=lambda *a: None,
+            compiled=compiled,
+            finish=lambda s, o, c=compiled: ends.update({c: (s, o)}))
+    got, want = recs[True], recs[False]
+    assert (got["path"], want["path"]) == ("compiled", "eager")
+    assert got["instances"] == want["instances"] > 0
+    assert got["captures"] == [] and len(got["step_ms"]) == 1
+    assert got["launches"] == want["launches"]
+    (s1, o1), (s2, o2) = ends[True], ends[False]
+    assert s1.n_alive == s2.n_alive == 3000 and int(o1.step) == 3
+    for a, b in zip(list(s1.params) + list(o1.mu) + list(o1.nu) +
+                    [getattr(s1, k) for k in gmod.STAT_FIELDS],
+                    list(s2.params) + list(o2.mu) + list(o2.nu) +
+                    [getattr(s2, k) for k in gmod.STAT_FIELDS]):
+        assert torch.equal(a, b)
+
+
 def test_1m_tier_instances_on_the_cpu():
     """bench.py's 1m tier at full size: each of the 1,048,576 Gaussians
     touches as many tiles in the port as in rain_tpu run op by op,

@@ -1,5 +1,5 @@
-"""What a Trainer's loop did, recorded by wrapping the four names its
-module calls: ``train_step``, ``densify_and_prune``, ``reset_opacity`` and
+"""What a Trainer's loop did, recorded by wrapping the four names it
+calls: ``train_step``, ``densify_and_prune``, ``reset_opacity`` and
 ``grow_capacity``. The wrappers record each call and call through.
 
 rain_tpu's Trainer and the port's call the same four names, so one
@@ -42,10 +42,11 @@ def record(setattr_, step_mod, densify_mod, gaussians_mod, *,
            before_densify=None, timer=None):
     """Wrap the four names in the modules given, through ``setattr_``
     (``monkeypatch.setattr`` or ``Patches.setattr``). ``step_mod`` is what
-    holds the ``train_step`` the Trainer reaches: a step module, or the
-    port's ``compiled.CompiledStep`` class, whose method the Trainer calls
-    (on the card its replays never reach the step module). Returns the
-    trace, a dict that fills as the loop runs:
+    holds the ``train_step`` the Trainer reaches, and ``densify_mod`` what
+    holds its ``densify_and_prune`` and ``reset_opacity``: a module, or
+    the port's ``compiled.CompiledStep`` class, whose methods the Trainer
+    calls (on the card their replays never reach the step or densify
+    module). Returns the trace, a dict that fills as the loop runs:
 
     - "calls": in call order, ("step", world_view, xyz_lr, sh_degree,
       low_pass, update_densify_stats, max_instances, capacity, width,
@@ -79,17 +80,20 @@ def record(setattr_, step_mod, densify_mod, gaussians_mod, *,
         trace["aux"].append(out[2])
         return out
 
-    def densify_and_prune(state, opt, key_or_noise, **kw):
+    def densify_and_prune(*a, **kw):
+        # (a method's self first)
+        state, opt, key_or_noise = a[-3:]
         if before_densify is not None:
             before_densify(state, kw)
-        out, ms = run(dens0, state, opt, key_or_noise, **kw)
+        out, ms = run(dens0, *a, **kw)
         _timed_call(("densify", state.capacity, int(state.n_alive),
                      kw["abe_split"], kw["use_size_threshold"], out[2]), ms)
         return out
 
-    def reset_opacity(state, opt):
+    def reset_opacity(*a, **kw):
+        state, opt = a[-2:]
         trace["calls"].append(("reset", state.capacity, int(state.n_alive)))
-        return reset0(state, opt)
+        return reset0(*a, **kw)
 
     def grow_capacity(state, new_capacity):
         out, ms = run(grow0, state, new_capacity)
