@@ -1972,7 +1972,7 @@ def ab_phase(state, cam, gt):
     _, g_scatter, seen_s = runs["scatter"][0]
     legacy, g_legacy, seen_l = runs["legacy"][0]
     if "reduce_B2" in seen_s or "reduce_B2" in seen_l or tuple(seen_l) != \
-            render_ops.LEGACY_STAGES + render_ops.BACKWARD_STAGES[:1]:
+            render_ops.LEGACY_STAGES + render_ops.BACKWARD_STAGES[:2]:
         raise AssertionError("an A/B path ran kernel B2")
 
     # the two sorts: one Binning
@@ -3612,8 +3612,11 @@ def main(out: Path | None = None):
                      ("expand", "reduce", "tile_render_fwd",
                       "tile_render_bwd")}
     print(f"resident blocks per SM: {blocks_per_sm}")
-    if len(list(_build.CSRC.glob("*.cu"))) != 4:
-        raise AssertionError("expected four kernel sources")
+    if sorted(p.stem for p in _build.CSRC.glob("*.cu")) != [
+            "expand", "marks", "reduce", "tile_render_bwd",
+            "tile_render_fwd"]:
+        raise AssertionError("expected the four kernels' sources and the "
+                             "stage marks'")
     b1_cases = b1_edge_cases()
     b2_cases = b2_edge_cases()
 

@@ -59,11 +59,13 @@ STAGES = ("preprocess", "depth_sort", "expand_B1", "tile_sort_gather",
 # RenderOutput.
 LEGACY_STAGES = ("preprocess", "bin_gaussians", "pack_take", "composite_B3",
                  "assemble")
-# The stages of a backward through ``render``, in order: kernel B4's
-# (args, d_pack) (ops.tile_render.composite) and kernel B2's
+# The stages of a backward through ``render``, in order: the tiles'
+# cotangent as kernel B4 receives it (the backward of what follows the
+# compositor: the loss and the image's assembly), kernel B4's
+# (args, d_pack) (both ops.tile_render.composite) and kernel B2's
 # (d_rank, exc, tiles, d_depth) (ops.binning.sorted_pack_bwd; not with
 # reduce="scatter" or the legacy path).
-BACKWARD_STAGES = ("composite_bwd_B4", "reduce_B2")
+BACKWARD_STAGES = ("loss_bwd", "composite_bwd_B4", "reduce_B2")
 EXPANSIONS = ("fused", "legacy")
 
 

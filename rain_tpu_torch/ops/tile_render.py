@@ -423,11 +423,12 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_tiles):
+        on_stage, ctx.on_stage = ctx.on_stage, None   # as _SortedPack's
+        on_stage("loss_bwd", g_tiles)
         pack, starts, ends, tiles = ctx.saved_tensors
         g_tiles = g_tiles.contiguous()
         d_pack = composite_backward(pack, starts, ends, ctx.toff,
                                     ctx.grid_x, tiles, g_tiles)
-        on_stage, ctx.on_stage = ctx.on_stage, None   # as _SortedPack's
         on_stage("composite_bwd_B4",
                  ((pack.detach(), starts, ends, ctx.toff, ctx.grid_x,
                    tiles.detach(), g_tiles), d_pack))
@@ -439,7 +440,7 @@ def composite(pack: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
               ) -> torch.Tensor:
     """``composite_forward`` (kernel B3) as an autograd Function whose
     backward is ``composite_backward`` (kernel B4): only the pack takes a
-    gradient, and only through the r, g, b and final_T channels.
-    ``on_stage("composite_bwd_B4", (B4's args, d_pack))`` is called in the
-    backward."""
+    gradient, and only through the r, g, b and final_T channels. In the
+    backward, ``on_stage("loss_bwd", g_tiles)`` is called on entry and
+    ``on_stage("composite_bwd_B4", (B4's args, d_pack))`` after B4."""
     return _Composite.apply(pack, starts, ends, toff, grid_x, on_stage)

@@ -30,8 +30,9 @@ tool's PROBE_TRACE) profiles 3 more steps of each tier with
 torch.profiler: DIR/<tier>.json is the Chrome trace, DIR/<tier>.txt the
 table of device time by kernel, and the record gains per step the
 device's busy time and operations, the host's launch calls, and the
-device time of the copy operations (on the compiled path, the copies of
-the inputs in and the outputs out, beside the step's own copies). A tier
+device time of the compiled step's copies of the inputs in and the
+outputs out (the operations launched inside its ``rain.compiled.copy_in``
+and ``copy_out`` spans; none on the eager path). A tier
 that runs out of device memory is reported as such and the probe goes on
 with the next, on either path. Like the port's other entry points it
 runs on the CUDA card and raises without one unless --device cpu, where
@@ -84,6 +85,8 @@ TRACE_STEPS = 3
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
                      "cudaMemcpyAsync", "cudaMemsetAsync")
+# the compiled step's host spans around its copies into and out of a graph
+COPY_SPANS = (compiled_mod.SPAN + "copy_in", compiled_mod.SPAN + "copy_out")
 
 
 class TierState(NamedTuple):
@@ -175,19 +178,38 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _is_copy(name: str) -> bool:
-    """A device operation that copies memory: a memcpy, or a copy kernel
-    (the compiled path's multi-tensor copies in and out among them)."""
-    name = name.lower()
-    return "memcpy" in name or "copy" in name
+def span_ops(events: list, spans=COPY_SPANS) -> dict:
+    """{name: (device us, count)} of the device operations in a Chrome
+    trace's ``events`` that were launched while one of the host ranges
+    ``spans`` was open (their runtime call and the operation share a
+    correlation id)."""
+    ranges, launched = [], {}
+    for e in events:
+        cat = e.get("cat")
+        if cat == "user_annotation" and e.get("name") in spans and \
+                "dur" in e:
+            ranges.append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            launched[e["args"].get("correlation")] = e["ts"]
+    out = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if t is not None and any(a <= t <= b for a, b in ranges):
+            us, n = out.get(e["name"], (0.0, 0))
+            out[e["name"]] = (us + e["dur"], n + 1)
+    return out
 
 
 def _profile(run, dev, path: Path) -> dict:
     """torch.profiler over TRACE_STEPS calls of ``run``: the Chrome trace
     and the table to ``path`` (.json, .txt); per call (on the card) the
     device's busy time and operations, the host's launch calls
-    (HOST_LAUNCH_CALLS) and the device time of the copy operations, with
-    each copy operation's ms and count."""
+    (HOST_LAUNCH_CALLS) and the device time of the compiled step's copies
+    into and out of its graph (the operations launched inside its
+    COPY_SPANS; none on the eager path), with each operation's ms and
+    count."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -207,17 +229,18 @@ def _profile(run, dev, path: Path) -> dict:
         return {}
     ops = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in ops if _is_copy(e.key)]
+    with open(path.with_suffix(".json")) as f:
+        copies = span_ops(json.load(f)["traceEvents"])
     return {"device_busy_ms": sum(e.self_device_time_total for e in ops) /
             1e3 / TRACE_STEPS,
             "device_ops": sum(e.count for e in ops) / TRACE_STEPS,
             "host_launches": sum(e.count for e in events
                                  if e.key in HOST_LAUNCH_CALLS) / TRACE_STEPS,
-            "copy_ms": sum(e.self_device_time_total for e in copies) / 1e3 /
+            "copy_ms": sum(us for us, _ in copies.values()) / 1e3 /
             TRACE_STEPS,
-            "copy_ops": [[e.key[:100],
-                          e.self_device_time_total / 1e3 / TRACE_STEPS,
-                          e.count / TRACE_STEPS] for e in copies]}
+            "copy_ops": [[name[:100], us / 1e3 / TRACE_STEPS,
+                          n / TRACE_STEPS]
+                         for name, (us, n) in copies.items()]}
 
 
 def run_tier(name: str, *, device=None, iters: int = 10, trace=None,

@@ -72,17 +72,35 @@ communicator before any capture. On a gloo group it runs the eager step:
 gloo's collectives are host calls, which a graph cannot hold. The rule is
 the group's backend, not a fallback: a capture that fails on NCCL raises.
 The key is recorded on every path (``train_keys``, ``eval_keys``,
-``sharded_train_keys``, ``densify_keys``, ``reset_keys``). No ``on_stage`` hook: the hooks stay on the
-eager step. ``clear`` drops every graph, which an NCCL group's
-communicator must outlive.
+``sharded_train_keys``, ``densify_keys``, ``reset_keys``). ``clear`` drops
+every graph, which an NCCL group's communicator must outlive.
+
+- **Stage marks.** A capture passes the eager function a marking
+  ``on_stage`` hook (train.marks): each stage it reports (ops.render's,
+  the loss's and the step's; the round's and the reset's graphs end with
+  "round" and "reset") launches a one-thread kernel, ``rain_mark_<stage>``,
+  that writes the device clock into the graph's slot for it, after a
+  "begin" mark that opens every graph. So every replay stamps its
+  stages, and a profiler's record names them. ``stage_ms(key)`` reads
+  the key's last replay as {stage: ms} (one copy to the host, which
+  waits); ``last_step_key`` is the key of the last training step. The
+  warm-up and the CPU path run the eager function with no hook.
+- **Host spans.** While a profiler is on, each call opens the range
+  ``rain.compiled.<method>`` and inside it ``rain.compiled.copy_in``,
+  ``.replay``, ``.copy_out``, ``.capture`` (a key's warm-up and capture)
+  and ``.round_read`` (the round's one read); with none on, a call costs
+  one check.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
@@ -92,6 +110,7 @@ from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.parallel import distributed
 from rain_tpu_torch.parallel import sharding
+from rain_tpu_torch.train import marks as marks_mod
 from rain_tpu_torch.train import step as step_mod
 
 # the kernel wrappers whose launch counters a replay adds to: B1–B4
@@ -102,6 +121,9 @@ OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
 # the densify round's per-call thresholds, f32
 ROUND_SCALARS = ("max_grad", "min_opacity", "extent", "percent_dense",
                  "divide_ratio", "size_threshold")
+# the host spans' prefix (rain.compiled.<method>, .copy_in, ...)
+SPAN = "rain.compiled."
+_NO_SPAN = contextlib.nullcontext()
 
 
 class TrainKey(NamedTuple):
@@ -222,12 +244,14 @@ def _copy(dsts, srcs) -> None:
 
 class _Graph:
     """One key's graph: the static input buffers, the CUDA graph, its
-    static outputs and the launches of B1–B4 it holds.
+    static outputs, its stage marks and the launches of B1–B4 it holds.
 
     Built by the key's first call, whose result is the warm-up's: the
     eager step on the buffers, on a side stream, with its launches counted
-    as launches. The capture that follows launches nothing and counts
-    nothing, so each call counts its kernels once."""
+    as launches and no stage hook. The capture that follows launches
+    nothing and counts nothing, so each call counts its kernels once; it
+    passes ``fn`` the graph's ``Marks`` as its hook, after the "begin"
+    mark. ``fn(buffers, on_stage)`` returns the outputs."""
 
     def __init__(self, fn, inputs, buffers, device, pool):
         self.inputs = buffers
@@ -237,7 +261,7 @@ class _Graph:
         side = torch.cuda.Stream(device)
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            first = fn(self.inputs)
+            first = fn(self.inputs, tile_render.no_stage_hook)
         here.wait_stream(side)
         ids = {id(x): i for i, x in enumerate(self.inputs)}
         for x in first:
@@ -245,11 +269,14 @@ class _Graph:
                 x.record_stream(here)   # made on the side stream, used here
         self.first = (first, [ids.get(id(x)) for x in first])
         before = [k.launches for k in COUNTED]
+        self.marks = marks_mod.Marks(device)
+        self.replays = 0
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode=capture_mode()):
-                self.outputs = fn(self.inputs)
+                self.marks("begin")
+                self.outputs = fn(self.inputs, self.marks)
         finally:
             self.launches = [k.launches - n for k, n in zip(COUNTED, before)]
             for k, n in zip(COUNTED, before):
@@ -276,16 +303,22 @@ class _Graph:
         (first, alias), self.first = self.first, None
         return self._result(first, alias, inputs)
 
-    def __call__(self, inputs, device) -> list:
-        """A replay on ``inputs``: the outputs as new tensors."""
-        self.check(inputs, device)
-        _copy(self.inputs, inputs)
-        self.graph.replay()
+    def __call__(self, inputs, device, span) -> list:
+        """A replay on ``inputs``: the outputs as new tensors. ``span(name)``
+        gives the host range of each part."""
+        with span("copy_in"):
+            self.check(inputs, device)
+            _copy(self.inputs, inputs)
+        with span("replay"):
+            self.graph.replay()
+        self.replays += 1
         for k, n in zip(COUNTED, self.launches):
             k.launches += n
-        fresh = [x for x, a in zip(self.outputs, self.alias) if a is None]
-        outs = [torch.empty_like(x) for x in fresh]
-        _copy(outs, fresh)
+        with span("copy_out"):
+            fresh = [x for x, a in zip(self.outputs, self.alias)
+                     if a is None]
+            outs = [torch.empty_like(x) for x in fresh]
+            _copy(outs, fresh)
         it = iter(outs)
         return self._result([next(it) if a is None else None
                              for a in self.alias], self.alias, inputs)
@@ -372,6 +405,22 @@ def _step_results(outputs, n_alive) -> tuple:
     return state, _opt(take), take(4)
 
 
+def _spanned(method):
+    """A CompiledStep method inside the host range rain.compiled.<its
+    name> while a profiler is on. The call's one check of the profiler;
+    its inner spans (``CompiledStep._span``) read the answer."""
+    name = SPAN + method.__name__
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        self._profiling = torch._C._autograd._profiler_enabled()
+        if not self._profiling:
+            return method(self, *args, **kwargs)
+        with record_function(name):
+            return method(self, *args, **kwargs)
+    return call
+
+
 class CompiledStep:
     """``train_step`` and ``eval_render`` of train.step, the sharded step
     of parallel.sharding, and model.densify's round and opacity reset,
@@ -396,13 +445,19 @@ class CompiledStep:
         # the sharded step of each key, made once (rain_tpu/train/
         # trainer.py:272-283)
         self._sharded_fns = {}
+        self.last_step_key = None   # of the last train or sharded step
+        self._profiling = False     # whether the current call is traced
+
+    def _span(self, name: str):
+        """The host range rain.compiled.<name> in a traced call."""
+        return record_function(SPAN + name) if self._profiling else _NO_SPAN
 
     def _run(self, key, fn, inputs, dtypes, device) -> list:
         """fn's outputs on ``inputs``: replayed from the key's graph, or,
         at the key's first call, the warm-up's before the capture."""
         g = self.graphs.get(key)
         if g is not None:
-            return g(inputs, device)
+            return g(inputs, device, self._span)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
@@ -410,11 +465,22 @@ class CompiledStep:
         if kind not in self._buffers:
             self._buffers[kind] = [torch.empty(shape, dtype=t, device=device)
                                    for shape, t in kind[1]]
-        g = _Graph(fn, inputs, self._buffers[kind], device, self._pool)
+        with self._span("capture"):
+            g = _Graph(fn, inputs, self._buffers[kind], device, self._pool)
         g.kind = kind
         self.graphs[key] = g
         self.captures.append((key, (time.perf_counter() - t0) * 1e3))
         return g.take_first(inputs)
+
+    def stage_ms(self, key) -> dict:
+        """{stage: device ms} of the key's last replay, in the order of its
+        marks (train.marks: each interval named by the mark that ends
+        it); {} for a key with no graph or not replayed yet. One copy to
+        the host, which waits for the device: never on the step's path."""
+        g = self.graphs.get(key)
+        if g is None or not g.replays:
+            return {}
+        return g.marks.ms()
 
     def retire(self, capacity: int, max_instances: int) -> None:
         """Drop the graphs of keys below the whole capacity ``capacity``
@@ -446,6 +512,7 @@ class CompiledStep:
         self.graphs, self._buffers, self._sharded_fns = {}, {}, {}
         self._pool = None
 
+    @_spanned
     def train_step(self, state: gmod.GaussianState, opt: adam_mod.AdamState,
                    camera: dict, gt_image: torch.Tensor, bg: torch.Tensor,
                    low_pass, xyz_lr, *, width: int, height: int,
@@ -474,18 +541,20 @@ class CompiledStep:
         xs, dtypes = _step_inputs(state, opt, camera, gt_image, bg, low_pass,
                                   xyz_lr, opt_cfg_leaves, wh)
 
-        def run(b):
+        def run(b, on_stage):
             st, op, cam, gt, bgv, lp, lr, leaves, rwh = _step_args(b, len(wh))
             return _step_outputs(*step_mod.train_step(
                 st, op, cam, gt, bgv, lp, lr, opt_cfg_leaves=leaves,
-                real_wh=rwh or None, **kw))
+                real_wh=rwh or None, on_stage=on_stage, **kw))
 
         new_state, new_opt, (loss, l1, n_inst, overflow) = _step_results(
             self._run(key, run, xs, dtypes, dev), state.n_alive)
+        self.last_step_key = key
         return new_state, new_opt, step_mod.StepAux(
             loss=loss, l1=l1, num_instances=n_inst,
             instance_overflow=overflow, n_alive=state.n_alive)
 
+    @_spanned
     def sharded_train_step(self, state: gmod.GaussianState,
                            opt: adam_mod.AdamState, camera: dict,
                            gt_image: torch.Tensor, bg: torch.Tensor,
@@ -522,16 +591,19 @@ class CompiledStep:
         xs, dtypes = _step_inputs(state, opt, camera, gt_image, bg, low_pass,
                                   xyz_lr, opt_leaves)
 
-        def run(b):
+        def run(b, on_stage):
             st, op, cam, gt, bgv, lp, lr, leaves, _ = _step_args(b, 0)
-            return _step_outputs(*fn(st, op, cam, gt, bgv, lp, lr, leaves))
+            return _step_outputs(*fn(st, op, cam, gt, bgv, lp, lr, leaves,
+                                     on_stage))
 
         new_state, new_opt, (loss, l1, n_inst, overflow) = _step_results(
             self._run(key, run, xs, dtypes, dev), state.n_alive)
+        self.last_step_key = key
         return new_state, new_opt, sharding.ShardedAux(
             loss=loss, l1=l1, num_instances=n_inst,
             instance_overflow=overflow, n_alive=state.n_alive)
 
+    @_spanned
     def eval_render(self, state: gmod.GaussianState, camera: dict,
                     bg: torch.Tensor, low_pass, scale_modifier=1.0, *,
                     width: int, height: int, sh_degree: int,
@@ -553,16 +625,18 @@ class CompiledStep:
             ([camera[k] for k in CAMERA] + [bg], None),
             ([low_pass, scale_modifier], torch.float32))
 
-        def run(b):
+        def run(b, on_stage):
             take = _taker(b)
             st = _state(take, with_stats=False)
             cam = dict(zip(CAMERA, take(len(CAMERA))))
             bgv, lp, sm = take(3)
-            return list(step_mod.eval_render(st, cam, bgv, lp, sm, **kw))
+            return list(step_mod.eval_render(st, cam, bgv, lp, sm,
+                                             on_stage=on_stage, **kw))
 
         return render_ops.RenderOutput(*self._run(key, run, xs, dtypes, dev))
 
 
+    @_spanned
     def densify_and_prune(self, state: gmod.GaussianState,
                           opt: adam_mod.AdamState, noise: torch.Tensor, *,
                           max_grad, min_opacity, extent, percent_dense,
@@ -594,7 +668,7 @@ class CompiledStep:
             (list(opt.mu) + list(opt.nu) + [opt.step, noise], None),
             ([scalars[k] for k in ROUND_SCALARS], torch.float32))
 
-        def run(b):
+        def run(b, on_stage):
             take = _taker(b)
             st = _state(take, with_stats=True)
             op = _opt(take)
@@ -602,6 +676,7 @@ class CompiledStep:
             sc = dict(zip(ROUND_SCALARS, take(len(ROUND_SCALARS))))
             new, new_op, info = densify_mod.densify_round(st, op, nz, **sc,
                                                           **static)
+            on_stage("round", info)
             return (list(new.params) +
                     [getattr(new, k) for k in gmod.STAT_FIELDS] +
                     list(new_op.mu) + list(new_op.nu) + [new_op.step, info])
@@ -610,9 +685,11 @@ class CompiledStep:
         params = gmod.GaussianParams(*take(N_PARAMS))
         stats = take(len(gmod.STAT_FIELDS))
         new_opt = _opt(take)
-        info = densify_mod.unpack_info(*take(1))
+        with self._span("round_read"):
+            info = densify_mod.unpack_info(*take(1))
         return gmod.GaussianState(params, info.n_alive, *stats), new_opt, info
 
+    @_spanned
     def reset_opacity(self, state: gmod.GaussianState,
                       opt: adam_mod.AdamState, *, world: int = 1):
         """``densify.reset_opacity`` (same results), replayed from the
@@ -626,10 +703,12 @@ class CompiledStep:
         if dev.type == "cpu":
             return densify_mod.reset_opacity(state, opt)
 
-        def run(b):
+        def run(b, on_stage):
             op, = b
-            return [densify_mod.reset_logits(op), torch.zeros_like(op),
-                    torch.zeros_like(op)]
+            out = [densify_mod.reset_logits(op), torch.zeros_like(op),
+                   torch.zeros_like(op)]
+            on_stage("reset", out)
+            return out
 
         opacity, mu, nu = self._run(key, run, [state.params.opacity], [None],
                                     dev)

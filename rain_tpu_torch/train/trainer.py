@@ -765,6 +765,20 @@ class Trainer:
                 (iteration, cam.image_name, self.max_instances, again))
         return out
 
+    def _report_stages(self, iteration):
+        """The last replayed training step's device ms per stage
+        (``CompiledStep.stage_ms``) on one line of the log and, with the
+        TensorBoard writer open, as ``stage_ms/<stage>``; nothing where no
+        step was replayed (the CPU path, a key's first call)."""
+        split = self._steps.stage_ms(self._steps.last_step_key)
+        if not split:
+            return
+        self.log(f"[ITER {iteration}] stage ms of the last step: " +
+                 " ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        if self.tb is not None:
+            for k, v in split.items():
+                self.tb.add_scalar(f"stage_ms/{k}", v, iteration)
+
     @torch.no_grad()
     def report(self, iteration):
         """PSNR, L1, SSIM and, with local VGG weights, LPIPS of the test
@@ -775,6 +789,7 @@ class Trainer:
         state, _ = self._whole()
         if not self.is_rank0:
             return {}
+        self._report_stages(iteration)
         lpips_fn = lpips_fn_or_none(log_fn=self.log, device=self.device)
         configs = [("test", self.scene.test_cameras),
                    ("train", [self.scene.train_cameras[

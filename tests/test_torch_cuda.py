@@ -16,6 +16,7 @@ from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops import losses as loss_ops
+from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.scripts import knn_deviation, probe_scale
 from rain_tpu_torch.train import compiled
 from rain_tpu_torch.train import step
@@ -733,6 +734,112 @@ def test_compiled_round_and_reset_replay_equal_eager(cuda, abe_split,
     assert len(steps.graphs) == 2 and len(steps.captures) == 2
     assert steps.densify_keys == {compiled.DensifyKey(
         5000, 2, abe_split, use_size_threshold)}
+
+
+TRAIN_MARKS = (("begin",) + render_ops.STAGES + ("loss",) +
+               render_ops.BACKWARD_STAGES + step.TRAIN_STAGES[1:])
+EVAL_MARKS = ("begin",) + render_ops.STAGES
+
+
+def _marked_calls(cuda, steps, calls=3):
+    """A train, an eval, a round and a reset key through ``steps``, each
+    captured and replayed ``calls - 1`` times on other inputs, every call
+    held to the eager function bit for bit. Returns {kind: key}."""
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    leaves = {k: torch.full((), v, device=cuda) for k, v in OPT.items()}
+    kw = dict(width=W, height=H, sh_degree=3, max_instances=M)
+    base = _round_state(cuda)
+    for k in range(calls):
+        x = _step_inputs(cuda, k, False)
+        st = state._replace(n_alive=x["n_alive"])
+        args = (st, opt, x["camera"], x["gt"], x["bg"], x["low_pass"],
+                x["xyz_lr"])
+        want = step.train_step(*args, opt_cfg_leaves=leaves, **kw)
+        got = steps.train_step(*args, opt_cfg_leaves=leaves, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(got),
+                                                      _tensors(want)))
+        want = step.eval_render(st, x["camera"], x["bg"], x["low_pass"],
+                                **kw)
+        got = steps.eval_render(st, x["camera"], x["bg"], x["low_pass"],
+                                **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        rs, ro = rounds.seeded(base, 1900 + 50 * k, seed=k)
+        noise = rounds.noise(base.capacity, cuda, seed=k)
+        sc = rounds.scalars(k, cuda, extent=5.0)
+        assert rounds.same(steps.densify_and_prune(rs, ro, noise, **sc),
+                           densify_mod.densify_and_prune(rs, ro, noise, **sc))
+        assert rounds.same(steps.reset_opacity(rs, ro),
+                           densify_mod.reset_opacity(rs, ro))
+    return {"train": next(iter(steps.train_keys)),
+            "eval": next(iter(steps.eval_keys)),
+            "round": next(iter(steps.densify_keys)),
+            "reset": next(iter(steps.reset_keys))}
+
+
+def test_marked_replays_equal_eager_and_read_their_stages(cuda):
+    """Every graph carries its stage marks: the replays of a train, an
+    eval, a round and a reset key equal the eager results bit for bit
+    (``_marked_calls``), each key recorded its marks in order at capture,
+    and ``stage_ms`` reads its last replay's intervals by name, each
+    >= 0."""
+    steps = compiled.CompiledStep()
+    keys = _marked_calls(cuda, steps)
+    want = {"train": TRAIN_MARKS, "eval": EVAL_MARKS,
+            "round": ("begin", "round"), "reset": ("begin", "reset")}
+    for kind, key in keys.items():
+        assert tuple(steps.graphs[key].marks.names) == want[kind], kind
+        ms = steps.stage_ms(key)
+        assert tuple(ms) == want[kind][1:], kind
+        assert all(v >= 0.0 for v in ms.values()) and sum(ms.values()) > 0
+    assert steps.last_step_key == keys["train"]
+    # the composite's intervals hold B3's and B4's work
+    ms = steps.stage_ms(keys["train"])
+    assert ms["composite_B3"] > 0.0 and ms["composite_bwd_B4"] > 0.0
+
+
+def test_a_profiled_replay_holds_each_mark_once_in_order(cuda, tmp_path):
+    """One traced replay of a train and an eval key: the profiler's record
+    holds each rain_mark_<stage> kernel once, in the order its key
+    recorded, launched by the graph; the call's host spans name its copies
+    in and out, and the copies' operations were launched inside them."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    steps = compiled.CompiledStep()
+    keys = _marked_calls(cuda, steps, calls=2)
+    x = _step_inputs(cuda, 5, False)
+    state = _state(cuda)._replace(n_alive=x["n_alive"])
+    leaves = {k: torch.full((), v, device=cuda) for k, v in OPT.items()}
+    kw = dict(width=W, height=H, sh_degree=3, max_instances=M)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps.train_step(state, adam_mod.init(state.params), x["camera"],
+                         x["gt"], x["bg"], x["low_pass"], x["xyz_lr"],
+                         opt_cfg_leaves=leaves, **kw)
+        steps.eval_render(state, x["camera"], x["bg"], x["low_pass"], **kw)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    launched = {e["args"].get("correlation"): e["name"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    found = sorted((e["ts"], e["name"], launched.get(
+        e["args"].get("correlation"))) for e in events
+        if e.get("cat") == "kernel" and e["name"].startswith("rain_mark_"))
+    assert [n for _, n, _ in found] == [
+        "rain_mark_" + s for s in
+        steps.graphs[keys["train"]].marks.names +
+        steps.graphs[keys["eval"]].marks.names]
+    assert {how for _, _, how in found} == {"cudaGraphLaunch"}
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    for name in ("train_step", "eval_render"):
+        assert spans.count(compiled.SPAN + name) == 1
+    for name in ("copy_in", "replay", "copy_out"):
+        assert spans.count(compiled.SPAN + name) == 2
+    copies = probe_scale.span_ops(events)
+    assert copies and all(n > 0 for _, n in copies.values())
+    assert not any(name.startswith("rain_mark_") for name in copies)
 
 
 def test_compiled_round_waits_only_to_read_its_info(cuda, monkeypatch):

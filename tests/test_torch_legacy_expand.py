@@ -105,7 +105,8 @@ def test_fused_render_and_grads_match_legacy():
     legacy, g_legacy, stages = _torch_run(arrays, alive, wts,
                                           expand="legacy")
     fused, g_fused, _ = _torch_run(arrays, alive, wts, reduce="scatter")
-    assert stages == list(trender.LEGACY_STAGES) + ["composite_bwd_B4"]
+    assert stages == list(trender.LEGACY_STAGES) + ["loss_bwd",
+                                                    "composite_bwd_B4"]
     assert int(legacy.num_instances) == int(fused.num_instances) > 700
     for f in ("render", "depth", "alpha", "final_t", "n_contrib"):
         assert torch.equal(getattr(legacy, f), getattr(fused, f)), f
