@@ -14,7 +14,8 @@ tile offset -82 on the synthetic band; the sharded step at D = 2 and 4
 against the single-device step (loss and l1 within 1e-5, Adam moments
 within 1e-5, params within 1e-5 where the gradient is above its rounding's
 level and 2·lr below it, statistics exact), B1-B4 bit for bit on every
-band, every kernel launched once per rank, a D = 2 rerun with the same
+band, B1-B4 launched once per rank and preprocess's kernels never (the
+sharded step runs the plain preprocess), a D = 2 rerun with the same
 bits; the sharded Trainer (devices=2) against devices=1, its steps and
 rank 0's report frames through its CompiledStep (the steps captured over
 NCCL, the frames held to the eager render bit for bit), and the same run
@@ -24,8 +25,9 @@ rank; and entry.dryrun_multichip(4). Then the captured sharded step
 graph per key and rank over NCCL) at D = 2 and 4 on phase 4's step 0
 (chip_smoke.captured_rank): a warm-up, the capture, then 20 replays of
 the same inputs, each equal to the eager NCCL step bit for bit on every
-rank, B1-B4 counted once per replay; per rank the ms per step captured
-and eager (host clock, each call ending in a synchronize), the host's
+rank, B1-B4 counted once per replay and preprocess's kernels never; per
+rank the ms per step captured and eager (host clock, each call ending in
+a synchronize), the host's
 launch calls per step (torch.profiler), the capture's ms and the peak
 memory over the capture and two replays, printed beside the one-card
 compiled step (train.compiled.CompiledStep.train_step on card 0 at the
@@ -121,8 +123,8 @@ def captured_phase(gt, one):
                         r["replay_digest"] != r["digest"]:
                     raise AssertionError(f"{what}: replays equal to the "
                                          f"eager step {r['replays_equal']}")
-                if r["launches"] != {k: smoke.CAPTURED_REPLAYS
-                                     for k in smoke.counters()} or \
+                if r["launches"] != smoke.sharded_launches(
+                        smoke.CAPTURED_REPLAYS) or \
                         len(r["captures"]) != 1:
                     raise AssertionError(f"{what}: launches {r['launches']}"
                                          f", captures {r['captures']}")

@@ -39,14 +39,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    bit for bit.
 3. The render path: eval_render from 5 poses at 1297x840 with
    max_instances=786,432, its kernels' launch counters set to 0 just
-   before and read just after (one launch of B1 and B3 per frame). The
+   before and read just after (one launch of B1, B3 and preprocess's
+   forward per frame). The
    frames are finite, do not overflow, pose 0 renders as in phase 2, and
    they are the ground truth of phase 4.
 4. The training main path, bench.py's 262k train tier: the scene is
    perturbed (seeded xyz noise, an opacity and a colour shift) and
    train_step takes 5 steps, one per pose, with the lrs of bench.py:79-80.
-   All four launch counters are set to 0 just before and read just after:
-   each kernel launched once per step. Loss and params are finite, no
+   The six launch counters (B1-B4 and preprocess's forward and backward
+   kernels) are set to 0 just before and read just after: each kernel
+   launched once per step. Loss and params are finite, no
    step overflows, and the loss at pose 0 after the steps is below step
    0's. Step 0 taken again from the same state gives the same params, Adam
    moments and statistics bit for bit.
@@ -84,16 +86,16 @@ Phases, in order; any failure exits non-zero before the result lines:
    (pipelined, reports at 0 and 60, checkpoints at 25 and 30, a PLY at
    60) starts from that KNN's scales bit for bit and has its launch
    counters set to 0 just before the loop: each kernel launched once per
-   dispatched step, retries included, B1 and B3 also once per report
-   frame. It must retry an overflow at a tier that fits, keep no
-   overflowed step, grow the capacity, match each round's n_alive, reset
-   the opacity, keep every loss and param finite, raise the held-out PSNR
-   and reload its PLY with n_alive rows. A second run from seed 0 (B,
-   profiled over iterations 10-19) equals A's checkpoint at 25 bit for
-   bit. A run E, A's loop with the compiled step's methods replaced by
-   the eager step, render, densify round and opacity reset, equals A bit
-   for bit: every step's tier, capacity, n_alive, loss and instances,
-   each round's DensifyInfo, the reports at 0 and 60 and the final
+   dispatched step, retries included, B1, B3 and preprocess's forward
+   also once per report frame. It must retry an overflow at a tier that
+   fits, keep no overflowed step, grow the capacity, match each round's
+   n_alive, reset the opacity, keep every loss and param finite, raise
+   the held-out PSNR and reload its PLY with n_alive rows. A second run
+   from seed 0 (B, profiled over iterations 10-19) equals A's checkpoint
+   at 25 bit for bit. A run E, A's loop with the compiled step's methods
+   replaced by the eager step, render, densify round and opacity reset,
+   equals A bit for bit: every step's tier, capacity, n_alive, loss and
+   instances, each round's DensifyInfo, the reports at 0 and 60 and the final
    state. At B's first step after the
    growth (iteration 21: capacity
    786,432 with dead rows at its tail, the grown tier) B1, B3, B4 and B2
@@ -126,10 +128,12 @@ Phases, in order; any failure exits non-zero before the result lines:
    the native COLMAP parser is used and equals the Python one; the scene
    loads as written; the launch counters, set to 0 just before the train
    CLI and read just after, count each kernel once per dispatched step
-   and B1 and B3 once more per report frame and re-render; the losses are
+   and B1, B3 and preprocess's forward once more per report frame and
+   re-render; the losses are
    finite and fall from iteration 1 to 40; the provenance files, the PLY
    and the resumed run; the render CLI writes 10 renders, gt, depth and
-   inferno depth PNGs (B1 and B3 once per frame and re-render); test view
+   inferno depth PNGs (B1, B3 and preprocess's forward once per frame and
+   re-render); test view
    0's PNG is the truncated eval_render of the loaded PLY bit for bit and
    B3 on that frame its plain version's bits; results.json's PSNR is the
    report's at 40 within what the PNG's truncation can move it. Recorded:
@@ -148,10 +152,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    instances within 0.1 % of round 5's 3,332,871; iteration 1 overflows
    the first tier 1,245,184 and is retried at a tier that holds it; the
    launch counters, set to 0 just before each run and read just after,
-   count B1 and B3 once per target view, dispatched step (retries
-   included), report frame and re-render and B4 and B2 once per
-   dispatched step; at the retried step of iteration 1 B1, B3, B4 and B2
-   are held against their plain versions bit for bit and timed (phase 7's
+   count B1, B3 and preprocess's forward once per target view,
+   dispatched step (retries included), report frame and re-render and B4,
+   B2 and preprocess's backward once per dispatched step; at the retried
+   step of iteration 1 B1, B3, B4 and B2 are held against their plain
+   versions bit for bit and timed (phase 7's
    trainer_step_kernels, whose launches are not counted); losses and
    params finite, the held-out PSNR at 1000 above that at 1; the resumed
    run starts at 500 and reaches 600. Recorded: the exact KNN at 150,000
@@ -166,8 +171,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    render and the training loss's gradients through B2 (the main path),
    through the scatter reduction and through the legacy expansion, each
    twice. Checked: each path's two runs equal bit for bit; neither A/B
-   path launches B2; bin_gaussians with torch.sort and with the bitonic
-   network give one Binning, the legacy path's; the legacy and the fused
+   path launches B2; no path launches preprocess's kernels (render.render
+   from activated tensors runs the plain preprocess); bin_gaussians with
+   torch.sort and with the bitonic network give one Binning, the legacy
+   path's; the legacy and the fused
    path give one image, depth, alpha, final T and n_contrib, one instance
    order (tiles and depth ranks of the sorted keys, and the packs) bit
    for bit; with the scatter reduction their gradients are equal bit for
@@ -182,8 +189,10 @@ Phases, in order; any failure exits non-zero before the result lines:
    versions and with the band moved down one row at offset 0. Then phase
    4's step 0 (the perturbed 262k proxy, pose 0, its render as ground
    truth) at D = 2 and 4 ranks, the tier 786,432 per band: every rank's
-   counts set to 0 just before its step and read just after (each kernel
-   once per rank); loss and l1 within 1e-5 of the single-device step's;
+   counts set to 0 just before its step and read just after (B1-B4 once
+   per rank, preprocess's kernels never: the sharded step passes its
+   colours and covariances to render.render as overrides); loss and l1
+   within 1e-5 of the single-device step's;
    every rank's rows of the Adam moments within 1e-5 absolute, of the
    params too wherever the single-device gradient is at least 1e-6 of its
    leaf's largest (below that the gradient is at its rounding's level and
@@ -207,7 +216,9 @@ Phases, in order; any failure exits non-zero before the result lines:
    --rank r, --dist_backend gloo, --device cuda:0), each reporting its
    launches (tests/torch_cli_rank.py). Checked: both exit 0, rank 0 alone
    writes the output folder, on each rank B4 and B2 once per dispatched
-   step and B1 and B3 once more per report frame; against phase 8's run
+   step and B1 and B3 once more per report frame, preprocess's forward
+   once per report frame (rank 0's, through eval_render) and its backward
+   never; against phase 8's run
    of one process: cfg_args.json equal but for the output folder and
    system.devices, cameras.json and input.ply byte for byte, the same
    capacity and n_alive, the final test PSNR within 0.05 dB, the PLY's
@@ -258,8 +269,11 @@ Phases, in order; any failure exits non-zero before the result lines:
    iterations, densify rounds every 100 from 300 to 2,000, an opacity
    reset at 1,200, tier 131,072), its loop recorded and its launch
    counters set to 0 just before and read just after (B1 and B3 once per
-   ground-truth view, dispatched step, report frame and re-render, B4 and
-   B2 once per dispatched step). Checked: the JAX test's five assertions
+   ground-truth view, dispatched step, report frame and re-render, B4, B2
+   and preprocess's backward once per dispatched step, its forward once
+   per dispatched step, report frame and re-render: the ground truth
+   renders through render.render, the plain preprocess). Checked: the JAX
+   test's five assertions
    (at least 1,500 alive, capacity above 512, a "growing capacity" event,
    final test PSNR above 26 dB and 8 dB above iteration 0's); the
    iteration-0 report within one unit of the last digit that
@@ -323,17 +337,33 @@ Phases, in order; any failure exits non-zero before the result lines:
    and replayed. Checked: every call, captures included, equals the
    eager round or reset bit for bit (params, moments, statistics,
    n_alive, DensifyInfo); a replayed round makes exactly one
-   synchronising call, the read of its info; no call launches B1-B4.
+   synchronising call, the read of its info; no call launches a kernel
+   of B1-B4 or preprocess.
    Recorded for the eager and the compiled path, round and reset: host ms
    per call (each synchronised, median of 10), the device's busy time and
    operations and the host's launch calls per call (torch.profiler), the
    peak and reserved memory over a first call and two more (the capture
    and two replays), and the captures (key, ms).
 
+17. Preprocess's two kernels (ops.preprocess: csrc/preprocess_fwd.cu and
+   preprocess_bwd.cu) at the benchmark's two configurations
+   (gsbench/configs/garden_4m.json and garden_init_262k.json, their scene
+   made from one seed, the pan's five poses): the forward against
+   preprocess_torch on the card bit for bit, every output, and the
+   backward against autograd through it within 1e-6 per leaf
+   (tests/torch_preprocess_cases.py:check_kernels), each launch counted.
+   Recorded at pose 0:
+   each kernel's ms (CUDA events, median of 20) beside its bound (the
+   bytes it must move at 3.35 TB/s: 0.38 ms forward and 0.64 ms backward
+   at 4,194,304 Gaussians), the plain version's forward and forward plus
+   backward ms, the gradients' gaps. Printed as one {"preprocess": ...}
+   line.
+
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
 (each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12, 13
-and 15, and its ms and bound ms at phase 12's tiers; the rounds of
-phases 7, 9, 12, 13 and 16 launch none of B1-B4) and, last,
+and 15; B1-B4's ms and bound ms at phase 12's tiers, preprocess's
+kernels' at phase 17's 4m scene; the rounds of phases 7, 9, 12, 13 and
+16 launch none of them) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -374,6 +404,7 @@ from rain_tpu_torch.ops import binning as binning_ops
 from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import knn as knn_ops
 from rain_tpu_torch.ops import losses as loss_ops
+from rain_tpu_torch.ops import preprocess as prep_ops
 from rain_tpu_torch.ops import projection as proj_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
@@ -394,6 +425,9 @@ from rain_tpu_torch.train import step
 from rain_tpu_torch.train import trainer as trainer_mod
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+from gsbench import camera as gsbench_camera  # noqa: E402
+from gsbench import scene as gsbench_scene  # noqa: E402
 
 DEV = torch.device("cuda")
 WIDTH, HEIGHT = 1297, 840            # garden at images_4 (bench.py:58)
@@ -522,6 +556,11 @@ def train(state, opt, cam, gt, width, height, events=None,
     return out, seen
 
 
+# (name, source) of preprocess's two kernels, which replace no TPU kernel
+PREP_KERNELS = (
+    ("preprocess_forward", "rain_tpu_torch/csrc/preprocess_fwd.cu"),
+    ("preprocess_backward", "rain_tpu_torch/csrc/preprocess_bwd.cu"),
+)
 # (name, source, the TPU kernel it replaces) of B1, B3, B4 and B2
 KERNELS = (
     ("expand_instances", "rain_tpu_torch/csrc/expand.cu",
@@ -708,12 +747,15 @@ def stage_split(run, stages, reps=10):
 
 def occupancy(lib):
     """Resident blocks per SM of a kernel (its C entry
-    rain_{expand,reduce}_occupancy or
-    rain_composite_{forward,backward}_occupancy)."""
+    rain_{expand,reduce}_occupancy,
+    rain_composite_{forward,backward}_occupancy or
+    rain_preprocess_{forward,backward}_occupancy)."""
     entry = {"expand": "rain_expand_occupancy",
              "reduce": "rain_reduce_occupancy",
              "tile_render_fwd": "rain_composite_forward_occupancy",
-             "tile_render_bwd": "rain_composite_backward_occupancy"}[lib]
+             "tile_render_bwd": "rain_composite_backward_occupancy",
+             "preprocess_fwd": "rain_preprocess_forward_occupancy",
+             "preprocess_bwd": "rain_preprocess_backward_occupancy"}[lib]
     blocks = ctypes.c_int(0)
     _build.launch(_build.kernel(lib, entry, (ctypes.c_void_p,)), DEV,
                   ctypes.addressof(blocks))
@@ -801,7 +843,30 @@ def counters():
     return {"expand_instances": expand_ops.expand_instances,
             "composite_forward": tile_render.composite_forward,
             "composite_backward": tile_render.composite_backward,
-            "reduce_instances": expand_ops.reduce_instances}
+            "reduce_instances": expand_ops.reduce_instances,
+            "preprocess_forward": prep_ops.preprocess_forward,
+            "preprocess_backward": prep_ops.preprocess_backward}
+
+
+def launches_for(frames, steps):
+    """The launches of ``frames`` eval_renders and ``steps`` train_steps:
+    B1, B3 and preprocess's forward once per frame and step, B4, B2 and
+    preprocess's backward once per step."""
+    return {"expand_instances": frames + steps,
+            "composite_forward": frames + steps,
+            "composite_backward": steps, "reduce_instances": steps,
+            "preprocess_forward": frames + steps,
+            "preprocess_backward": steps}
+
+
+def sharded_launches(steps, frames=0):
+    """``launches_for`` a sharded run: its steps launch B1-B4 and not
+    preprocess's kernels (the sharded step passes its colours and
+    covariances to render.render as overrides, the plain preprocess);
+    ``frames`` (rank 0's reports, through eval_render) launch the
+    forward."""
+    return dict(launches_for(frames, steps), preprocess_forward=frames,
+                preprocess_backward=0)
 
 
 def reset_counts():
@@ -1256,10 +1321,7 @@ def trainer_phase(arrays, out=None):
         n_frames = len(scene.test_cameras) + 5
         rerenders = tr.report_rerenders
         again = sum(r[0] == TRAINER_ITERS for r in rerenders)
-        want = {"expand_instances": len(steps) + n_frames + again,
-                "composite_forward": len(steps) + n_frames + again,
-                "composite_backward": len(steps),
-                "reduce_instances": len(steps)}
+        want = launches_for(n_frames + again, len(steps))
         print(f"trainer: launches {launches} for {len(steps)} dispatched "
               f"steps and {n_frames} report frames")
         print(f"trainer: {len(rerenders)} report frames rendered again at a "
@@ -1610,10 +1672,7 @@ def cli_phase(arrays, tmp):
             raise AssertionError("the COLMAP scene did not load as written")
         n_frames = len(tr.scene.test_cameras) + 5
         again = len(tr.report_rerenders)
-        want = {"expand_instances": len(steps) + n_frames + again,
-                "composite_forward": len(steps) + n_frames + again,
-                "composite_backward": len(steps),
-                "reduce_instances": len(steps)}
+        want = launches_for(n_frames + again, len(steps))
         print(f"cli: train launches {launches} for {len(steps)} dispatched "
               f"steps, {n_frames} report frames and {again} re-renders")
         if launches != want:
@@ -1676,10 +1735,7 @@ def cli_phase(arrays, tmp):
                                   held) / 2**20
         rec["render_held_mib"] = held / 2**20
         frames = CLI_VIEWS + len(rerenders)
-        if render_launches != {"expand_instances": frames,
-                               "composite_forward": frames,
-                               "composite_backward": 0,
-                               "reduce_instances": 0}:
+        if render_launches != launches_for(frames, 0):
             raise AssertionError(f"render CLI launches {render_launches}")
         for kind in ("renders", "gt", "depth", "depth_inferno"):
             n = sum(len(list((out / split / f"ours_{CLI_ITERS}" / kind)
@@ -1811,12 +1867,7 @@ def production_phase():
         a = loop_summary(trace)
         steps, kept = a["steps"], a["kept"]
         again = len(tr.report_rerenders)
-        want = {"expand_instances": n_views + len(steps) + 2 * n_report +
-                again,
-                "composite_forward": n_views + len(steps) + 2 * n_report +
-                again,
-                "composite_backward": len(steps),
-                "reduce_instances": len(steps)}
+        want = launches_for(n_views + 2 * n_report + again, len(steps))
         print(f"production: launches {launches} for {n_views} target "
               f"views, {len(steps)} dispatched steps, {2 * n_report} report "
               f"frames and {again} re-renders")
@@ -1896,8 +1947,7 @@ def production_phase():
         launches = read_counts()
         steps = loop_summary(trace, first=PROD_CHECKPOINT + 1)
         n = len(steps["steps"])
-        want = {"expand_instances": n_views + n, "composite_forward":
-                n_views + n, "composite_backward": n, "reduce_instances": n}
+        want = launches_for(n_views, n)
         resumed = [s[3] for s in steps["kept"]]
         if run.first_iteration != PROD_CHECKPOINT or \
                 run.trainer.iteration != PROD_RESUMED or \
@@ -1961,6 +2011,10 @@ def ab_phase(state, cam, gt):
     runs = {name: [ab_render(state, cam, gt, **kw) for _ in range(2)]
             for name, kw in AB_PATHS.items()}
     rec["launches"] = read_counts()
+    if rec["launches"]["preprocess_forward"] or \
+            rec["launches"]["preprocess_backward"]:
+        raise AssertionError(f"render.render from activated tensors ran "
+                             f"preprocess's kernels: {rec['launches']}")
     for name, ((o1, g1, _), (o2, g2, _)) in runs.items():
         if not (bitwise_equal(o1.render, o2.render) and all(
                 bitwise_equal(a, b) for a, b in zip(g1, g2))):
@@ -2475,10 +2529,8 @@ def sharded_cli(src, out, world, backend, share_device, kernels):
              for r in range(world)]
     for r, rk in enumerate(ranks):
         n, steps = rk["launches"], rk["launches"]["composite_backward"]
-        frames = steps + rk["report_frames"] + rk["report_rerenders"]
-        if steps < CLI_ITERS or n != {
-                "expand_instances": frames, "composite_forward": frames,
-                "composite_backward": steps, "reduce_instances": steps}:
+        frames = rk["report_frames"] + rk["report_rerenders"]
+        if steps < CLI_ITERS or n != sharded_launches(steps, frames):
             raise AssertionError(f"{what}: rank {r} launches {n}, "
                                  f"{rk['report_frames']} report frames")
     files = {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
@@ -2612,7 +2664,7 @@ def sharded_phase(arrays, gt0, aux0, first_step, kernels,
             wall_s = time.perf_counter() - t
             for r in ranks:
                 what = f"sharded step D={world} rank {r['rank']}"
-                if r["launches"] != {k: 1 for k in counters()}:
+                if r["launches"] != sharded_launches(1):
                     raise AssertionError(f"{what}: launches {r['launches']}")
                 if r["overflow"]:
                     raise AssertionError(f"{what} overflowed "
@@ -2883,10 +2935,11 @@ def scale_phase(kernels):
         k["launches_scale"] = {
             **{t: rec[t]["launches"][k["name"]] for t in SCALE_TIERS},
             "growth": rec["growth"]["launches"][k["name"]]}
-        k["scale_ms_bound_ms"] = {
-            t: [rec[t]["kernels"][k["name"]]["ms"],
-                rec[t]["kernels"][k["name"]]["bound_ms"]]
-            for t in SCALE_TIERS}
+        if k["name"] in rec[SCALE_TIERS[0]]["kernels"]:   # B1-B4
+            k["scale_ms_bound_ms"] = {
+                t: [rec[t]["kernels"][k["name"]]["ms"],
+                    rec[t]["kernels"][k["name"]]["bound_ms"]]
+                for t in SCALE_TIERS}
     summary = {t: {"instances": rec[t]["instances"],
                    "bench_r05_instances": rec[t]["bench_r05_instances"],
                    **{p: {f: r[f] for f in (
@@ -3055,9 +3108,11 @@ def e2e_phase(kernels):
     steps = len(a["steps"])
     views = len(tr.scene.gt_instances)
     frames = 2 * (len(tr.scene.test_cameras) + 5) + len(tr.report_rerenders)
-    want = {"expand_instances": views + steps + frames,
-            "composite_forward": views + steps + frames,
-            "composite_backward": steps, "reduce_instances": steps}
+    want = launches_for(frames, steps)
+    # the ground truth renders through render.render from activated
+    # tensors: B1 and B3, the plain preprocess
+    want["expand_instances"] += views
+    want["composite_forward"] += views
     print(f"e2e: launches {launches} for {views} ground-truth views, "
           f"{steps} dispatched steps and {frames} report frames")
     if launches != want:
@@ -3362,9 +3417,8 @@ def compiled_phase(kernels):
             raise AssertionError(f"compiled eval_render differs from the "
                                  f"eager one at pose {k}")
         frames.append(int(got.num_instances))
-        if {n: after[n] - counts[n] for n in counts} != {
-                "expand_instances": 1, "composite_forward": 1,
-                "composite_backward": 0, "reduce_instances": 0}:
+        if {n: after[n] - counts[n] for n in counts} != \
+                launches_for(1, 0):
             raise AssertionError(f"compiled frame {k}: launches {after}")
     s, o = state, adam_mod.init(state.params)
     losses = []
@@ -3539,7 +3593,7 @@ def round_phase():
         raise AssertionError(f"rounds: a replayed round must wait once, to "
                              f"read its info: {syncs}")
     if read_counts() != counts:
-        raise AssertionError("rounds: a round or reset launched B1-B4")
+        raise AssertionError("rounds: a round or reset launched a kernel")
 
     paths = {
         "round": {
@@ -3587,6 +3641,87 @@ def round_phase():
     return rec
 
 
+# --- 17. preprocess's two kernels ---------------------------------------
+
+PREP = tests_module("torch_preprocess_cases")
+PREP_SEED = 4195000001
+PREP_CONFIGS = ("garden_4m", "garden_init_262k")
+# bytes each kernel must move per Gaussian: the 59 raw parameters and the
+# alive byte in, the 16 words of Preprocessed out (forward); the 59
+# parameters and 10 cotangents in, 59 gradients out (backward)
+PREP_BYTES_FWD = 59 * 4 + 1 + 16 * 4
+PREP_BYTES_BWD = (59 + 10 + 59) * 4
+
+
+def preprocess_phase():
+    """Preprocess's forward and backward kernels against their plain
+    version and timed, at the benchmark's two configurations (phase 17).
+    Returns {config: record}."""
+    rec = {}
+    for name in PREP_CONFIGS:
+        cfg = json.loads((ROOT / "gsbench" / "configs" /
+                          f"{name}.json").read_text())
+        params = gmod.GaussianParams(**gsbench_scene.make_params(
+            cfg, PREP_SEED, DEV))
+        n = cfg["n_gaussians"]
+        alive = torch.ones(n, dtype=torch.bool, device=DEV)
+        cams = gsbench_camera.stack([gsbench_camera.pan_pose(k)
+                                     for k in range(N_POSES)], DEV)
+        size = dict(width=cfg["width"], height=cfg["height"])
+        grid = ((cfg["width"] + 15) // 16, (cfg["height"] + 15) // 16)
+        kw = dict(deg=cfg["sh_degree"], grid=grid, **size)
+        checks = []
+        for k in range(N_POSES):
+            c = PREP.check_kernels(params, alive,
+                                   gsbench_camera.pick(cams, k), **kw)
+            if k == 0:   # its cotangents time the backward
+                plain = proj_ops.Preprocessed(*[t.detach()
+                                                for t in c["plain"]])
+            del c["plain"], c["grads"]   # and with them the autograd graph
+            checks.append(c)
+        cam = gsbench_camera.pick(cams, 0)
+        cots = PREP.cotangents(plain)
+        vals = prep_ops.call_values(cam, cfg["width"], cfg["height"],
+                                    LOW_PASS, 1.0, DEV)
+        deg = cfg["sh_degree"]
+        fwd_ms = device_ms(lambda: prep_ops.preprocess_forward(
+            params, alive, vals, sh_degree=deg, grid=grid))
+        bwd_ms = device_ms(lambda: prep_ops.preprocess_backward(
+            params, vals, sh_degree=deg, d_xy=cots[0], d_depth=cots[1],
+            d_conic=cots[2], d_rgb=cots[3], d_opacity=cots[4]))
+        pkw = dict(sh_degree=deg, camera=cam, grid=grid, **size)
+        plain_fwd_ms = device_ms(lambda: prep_ops.preprocess_torch(
+            params, alive, **pkw), reps=5)
+        leaves = gmod.GaussianParams(*[p.detach().requires_grad_(True)
+                                       for p in params])
+
+        def plain_both():
+            o = prep_ops.preprocess_torch(leaves, alive, **pkw)
+            torch.autograd.grad([getattr(o, f) for f in PREP.OUTS],
+                                list(leaves), cots)
+
+        plain_both_ms = device_ms(plain_both, reps=5)
+        bound_fwd, _ = bound(n * PREP_BYTES_FWD, 0)
+        bound_bwd, _ = bound(n * PREP_BYTES_BWD, 0)
+        rec[name] = {
+            "n": n, "visible": [c["visible"] for c in checks],
+            "grad_gaps": [c["gaps"] for c in checks],
+            "grad_max_err": [c["errs"] for c in checks],
+            "forward_ms": fwd_ms, "forward_bound_ms": bound_fwd,
+            "backward_ms": bwd_ms, "backward_bound_ms": bound_bwd,
+            "plain_forward_ms": plain_fwd_ms,
+            "plain_forward_backward_ms": plain_both_ms}
+        print(f"preprocess {name}: forward {fwd_ms:.4f} ms (bound "
+              f"{bound_fwd:.4f}, plain {plain_fwd_ms:.3f}), backward "
+              f"{bwd_ms:.4f} ms (bound {bound_bwd:.4f}, plain forward and "
+              f"backward {plain_both_ms:.3f}); forward bit for bit at "
+              f"{N_POSES} poses, worst gradient gap "
+              f"{max(max(c['gaps'].values()) for c in checks):.3g}")
+        del params, alive, plain, cots, leaves, checks
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3610,12 +3745,13 @@ def main(out: Path | None = None):
             print(f"  {name}: {line}")
     blocks_per_sm = {name: occupancy(name) for name in
                      ("expand", "reduce", "tile_render_fwd",
-                      "tile_render_bwd")}
+                      "tile_render_bwd", "preprocess_fwd",
+                      "preprocess_bwd")}
     print(f"resident blocks per SM: {blocks_per_sm}")
     if sorted(p.stem for p in _build.CSRC.glob("*.cu")) != [
-            "expand", "marks", "reduce", "tile_render_bwd",
-            "tile_render_fwd"]:
-        raise AssertionError("expected the four kernels' sources and the "
+            "expand", "marks", "preprocess_bwd", "preprocess_fwd", "reduce",
+            "tile_render_bwd", "tile_render_fwd"]:
+        raise AssertionError("expected the six kernels' sources and the "
                              "stage marks'")
     b1_cases = b1_edge_cases()
     b2_cases = b2_edge_cases()
@@ -3684,10 +3820,9 @@ def main(out: Path | None = None):
         frame_ms.append((time.perf_counter() - t) * 1e3)
     render_launches = read_counts()
     print(f"render path launches: {render_launches}")
-    if render_launches != {"expand_instances": N_POSES,
-                           "composite_forward": N_POSES,
-                           "composite_backward": 0, "reduce_instances": 0}:
-        raise AssertionError(f"expected {N_POSES} launches of B1 and B3")
+    if render_launches != launches_for(N_POSES, 0):
+        raise AssertionError(f"expected {N_POSES} launches of B1, B3 and "
+                             f"preprocess's forward")
     n_inst = [int(o.num_instances) for o in outs]
     for o in outs:
         if o.render.shape != (3, HEIGHT, WIDTH) or \
@@ -3847,6 +3982,11 @@ def main(out: Path | None = None):
             "plain_ms": dev_ms[name + "_torch"], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": dev_ms[library[0]] if library else None})
+    for name, source in PREP_KERNELS:   # timed in phase 17
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "no Pallas kernel: rain_tpu left preprocess to XLA",
+            "launches": train_launches[name]})
     work["b2_max_abs_per_row"] = b2_scale
     # --- 7. the Trainer loop -----------------------------------------------
     del ts, seen0, step0_kernels, calls, pack
@@ -3878,7 +4018,20 @@ def main(out: Path | None = None):
     # --- 16. the compiled densify round and opacity reset -------------------
     torch.cuda.empty_cache()
     round_rec = round_phase()
+    # --- 17. preprocess's two kernels -------------------------------------
+    torch.cuda.empty_cache()
+    prep_rec = preprocess_phase()
+    at_4m = prep_rec["garden_4m"]
     for k in kernels:
+        if k["name"] == "preprocess_forward":
+            k.update(ms=at_4m["forward_ms"], bound_by="bytes",
+                     bound_ms=at_4m["forward_bound_ms"],
+                     plain_ms=at_4m["plain_forward_ms"])
+        elif k["name"] == "preprocess_backward":
+            k.update(ms=at_4m["backward_ms"], bound_by="bytes",
+                     bound_ms=at_4m["backward_bound_ms"],
+                     plain_forward_backward_ms=at_4m[
+                         "plain_forward_backward_ms"])
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
         k["launches_production"] = prod_rec["launches"][k["name"]]
@@ -3929,6 +4082,7 @@ def main(out: Path | None = None):
         "tools": tools_rec,
         "compiled": compiled_rec,
         "rounds": round_rec,
+        "preprocess": prep_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:
@@ -3945,6 +4099,7 @@ def main(out: Path | None = None):
     print(f"chip_smoke: wall time {record['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"preprocess": prep_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

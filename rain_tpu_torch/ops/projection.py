@@ -1,9 +1,16 @@
 """Per-Gaussian preprocessing: projection, covariance, culling.
 
-Port of rain_tpu/ops/projection.py in plain torch ops (so autograd gives
-the reference's backward.cu:133-386 when the training slice needs it),
-itself the vectorised form of the reference preprocess kernel
-(cuda_rasterizer/forward.cu:63-246, auxiliary.h:30-153).
+Port of rain_tpu/ops/projection.py in plain torch ops, itself the
+vectorised form of the reference preprocess kernel
+(cuda_rasterizer/forward.cu:63-246, auxiliary.h:30-153). On the card the
+training step and the evaluation render do not run these ops: they take
+ops.preprocess, whose two CUDA kernels go from the raw parameters to
+``Preprocessed`` and back (the reference's preprocessCUDA and
+backward.cu:133-386), and whose plain version is gaussians.activate
+followed by ``preprocess`` here. These ops, under autograd, remain the
+route of every call with activated tensors or an override (the sharded
+step's ``colors_override``, ops.render.render's callers) and of every CPU
+tensor.
 
 Conventions (identical to the reference; see data/cameras.py):
 - world_view: 4x4 math-convention world→view (p_view = W @ p_h).

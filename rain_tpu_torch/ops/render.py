@@ -5,8 +5,12 @@ API and rasterizer orchestration (gaussian_renderer/__init__.py:9-79,
 rasterizer_impl.cu:187-330).
 
 Differentiability map:
-- preprocess: plain torch ops under autograd (the reference's
-  backward.cu:133-386).
+- preprocess: ``render_params`` takes the raw parameters and runs
+  ops.preprocess, on the card an autograd Function with one forward and
+  one backward kernel (the reference's preprocessCUDA and
+  backward.cu:133-386); ``render`` takes activated tensors (or the
+  overrides below) and runs ops.projection.preprocess, plain torch ops
+  under autograd.
 - binning: the integer rect data leaves the graph; ``sorted_pack`` is an
   autograd Function whose backward un-permutes the pack cotangent and sums
   it to the Gaussians with kernel B2 (ops.binning, ops.expand).
@@ -42,7 +46,9 @@ from typing import NamedTuple
 
 import torch
 
+from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import binning as binning_ops
+from rain_tpu_torch.ops import preprocess as prep_ops
 from rain_tpu_torch.ops import projection as proj_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.projection import TILE
@@ -169,6 +175,12 @@ def assemble_image(tiles: torch.Tensor, grid_x: int, n_rows: int,
     return img[:height, :width]
 
 
+def _grids(width: int, height: int, render_wh) -> tuple:
+    """(grid_x, grid_y, true width, true height) of a render."""
+    rw, rh = (width, height) if render_wh is None else render_wh
+    return ((width + TILE - 1) // TILE, (height + TILE - 1) // TILE, rw, rh)
+
+
 def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
            *,
            camera: dict,
@@ -185,7 +197,8 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
            render_wh: tuple | None = None,
            on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
            expand: str = "fused", reduce: str = "kernel") -> RenderOutput:
-    """Render one view from post-activation inputs (see model.gaussians).
+    """Render one view from post-activation inputs (see model.gaussians),
+    through ops.projection.preprocess.
 
     camera: dict from data.cameras.Camera.render_inputs().
     xy_tap: optional [N, 2] screen-space tap (see the module docstring).
@@ -203,9 +216,7 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
       BACKWARD_STAGES in a backward through the render.
     expand, reduce: the A/B paths (see ``render_tiles``).
     """
-    grid_x = (width + TILE - 1) // TILE
-    grid_y = (height + TILE - 1) // TILE
-    rw, rh = (width, height) if render_wh is None else render_wh
+    grid_x, grid_y, rw, rh = _grids(width, height, render_wh)
     prep = proj_ops.preprocess(
         means3d, scales_act, quats_act, opacity_act, shs, alive,
         sh_degree=sh_degree,
@@ -216,6 +227,46 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
         width=rw, height=rh, grid=(grid_x, grid_y),
         low_pass=low_pass, scale_modifier=scale_modifier,
         colors_override=colors_override, cov3d_override=cov3d_override)
+    return _render_prepared(
+        prep, width=width, height=height, bg=bg,
+        max_instances=max_instances, xy_tap=xy_tap, need_depth=need_depth,
+        on_stage=on_stage, expand=expand, reduce=reduce)
+
+
+def render_params(params: gmod.GaussianParams, alive: torch.Tensor, *,
+                  camera: dict, width: int, height: int, sh_degree: int,
+                  bg: torch.Tensor, low_pass=0.3, scale_modifier=1.0,
+                  max_instances: int, xy_tap: torch.Tensor | None = None,
+                  need_depth: bool = True, render_wh: tuple | None = None,
+                  on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+                  expand: str = "fused",
+                  reduce: str = "kernel") -> RenderOutput:
+    """``render`` from the raw parameters (model.gaussians.GaussianParams,
+    differentiable) through ops.preprocess: on the card one forward and
+    one backward kernel from the raw leaves to the screen quantities; on
+    the CPU gaussians.activate followed by ``render``'s preprocess, the
+    same ops. The other arguments are ``render``'s."""
+    grid_x, grid_y, rw, rh = _grids(width, height, render_wh)
+    prep = prep_ops.preprocess(
+        params, alive, sh_degree=sh_degree, camera=camera, width=rw,
+        height=rh, grid=(grid_x, grid_y), low_pass=low_pass,
+        scale_modifier=scale_modifier)
+    return _render_prepared(
+        prep, width=width, height=height, bg=bg,
+        max_instances=max_instances, xy_tap=xy_tap, need_depth=need_depth,
+        on_stage=on_stage, expand=expand, reduce=reduce)
+
+
+def _render_prepared(
+        prep: proj_ops.Preprocessed, *, width: int, height: int,
+        bg: torch.Tensor, max_instances: int,
+        xy_tap: torch.Tensor | None = None, need_depth: bool = True,
+        on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+        expand: str = "fused", reduce: str = "kernel") -> RenderOutput:
+    """The render after its preprocess: ``on_stage("preprocess", prep)``,
+    the tiles (``render_tiles``) and the image of width x height (the
+    bucket's, when the true size is smaller) over ``bg``."""
+    grid_x, grid_y, _, _ = _grids(width, height, None)
     on_stage("preprocess", prep)
 
     tiles, num_instances, overflow = render_tiles(

@@ -2,8 +2,11 @@
 
 Port of rain_tpu/ops/sh.py: the reference closed forms
 (utils/sh_utils.py:1-83, cuda_rasterizer/forward.cu:9-60) written in the
-same operation order, so autograd will reproduce the reference's SH
-backward (backward.cu:9-128) when the training slice needs it.
+same operation order. On the card the training step and the evaluation
+render evaluate SH inside ops.preprocess's kernels
+(csrc/preprocess.cuh:sh_basis, whose backward is the reference's
+backward.cu:9-128 by hand), in this order; these ops are its plain
+version, and autograd through them the sharded step's SH backward.
 """
 
 from __future__ import annotations

@@ -31,7 +31,10 @@ device inputs of the graph:
   then captures the step from the CompiledStep's one memory pool. A
   capture that fails raises; nothing falls back to the eager step. In a
   process of an NCCL group the capture runs in "thread_local" mode
-  (``capture_mode``), else in torch's default "global" one.
+  (``capture_mode``), else in torch's default "global" one. Python's
+  cyclic collector is off while a graph is captured: a collection there
+  could destroy another, unreachable graph (a dropped Trainer's), and a
+  "global" capture does not permit that call: the capture would fail.
 - **Replay.** A call copies its inputs into the buffers (device to device,
   one multi-tensor copy per dtype; a Python number is a fill), replays
   the graph and copies its outputs into new tensors, so the inputs are
@@ -50,8 +53,9 @@ device inputs of the graph:
   model.densify's does: it reads the round's packed info once (the
   round's only wait for the device, as rain_tpu's Trainer reads
   ``info.overflow`` once) and gives the new state a Python n_alive.
-- **Launch counters.** A replay adds to B1–B4's ``launches`` the
-  launches its capture recorded; the capture itself adds none, and the
+- **Launch counters.** A replay adds to the ``launches`` of B1–B4 and
+  of preprocess's two kernels (``COUNTED``) the launches its capture
+  recorded; the capture itself adds none, and the
   warm-up counts as the eager step it is: one count per call and kernel.
 - **Memory.** All graphs of one CompiledStep share one memory pool, and
   the graphs whose inputs have the same shapes share their input buffers.
@@ -96,6 +100,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import time
 from typing import NamedTuple
 
@@ -106,6 +111,7 @@ from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import preprocess as prep_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.parallel import distributed
@@ -113,9 +119,11 @@ from rain_tpu_torch.parallel import sharding
 from rain_tpu_torch.train import marks as marks_mod
 from rain_tpu_torch.train import step as step_mod
 
-# the kernel wrappers whose launch counters a replay adds to: B1–B4
+# the kernel wrappers whose launch counters a replay adds to: B1–B4 and
+# preprocess's forward and backward
 COUNTED = (expand_ops.expand_instances, expand_ops.reduce_instances,
-           tile_render.composite_forward, tile_render.composite_backward)
+           tile_render.composite_forward, tile_render.composite_backward,
+           prep_ops.preprocess_forward, prep_ops.preprocess_backward)
 CAMERA = ("world_view", "full_proj", "camera_center", "tanfovx", "tanfovy")
 OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
 # the densify round's per-call thresholds, f32
@@ -272,12 +280,16 @@ class _Graph:
         self.marks = marks_mod.Marks(device)
         self.replays = 0
         self.graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()    # see the module docstring's Capture
         try:
             with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode=capture_mode()):
                 self.marks("begin")
                 self.outputs = fn(self.inputs, self.marks)
         finally:
+            if collecting:
+                gc.enable()
             self.launches = [k.launches - n for k, n in zip(COUNTED, before)]
             for k, n in zip(COUNTED, before):
                 k.launches = n

@@ -107,9 +107,8 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
     tap = torch.zeros((state.capacity, 2), dtype=torch.float32, device=dev,
                       requires_grad=True)
     with torch.enable_grad():
-        scales, quats, opac, shs = gmod.activate(params)
-        out = render_ops.render(
-            params.xyz, scales, quats, opac, shs, alive,
+        out = render_ops.render_params(
+            params, alive,
             camera=camera, width=width, height=height,
             sh_degree=sh_degree, bg=bg, low_pass=low_pass,
             max_instances=max_instances, xy_tap=tap,
@@ -156,9 +155,8 @@ def eval_render(state: gmod.GaussianState, camera: dict, bg: torch.Tensor,
     of ``state``. ``low_pass``, ``scale_modifier`` and ``state.n_alive``
     may be 0-d device tensors, as in ``train_step``. on_stage(name, value)
     is called after each of ops.render.STAGES with its result."""
-    scales, quats, opac, shs = gmod.activate(state.params)
-    return render_ops.render(
-        state.params.xyz, scales, quats, opac, shs, gmod.alive_mask(state),
-        camera=camera, width=width, height=height, sh_degree=sh_degree,
-        bg=bg, low_pass=low_pass, max_instances=max_instances,
-        scale_modifier=scale_modifier, on_stage=on_stage)
+    return render_ops.render_params(
+        state.params, gmod.alive_mask(state), camera=camera, width=width,
+        height=height, sh_degree=sh_degree, bg=bg, low_pass=low_pass,
+        max_instances=max_instances, scale_modifier=scale_modifier,
+        on_stage=on_stage)

@@ -4,6 +4,9 @@ Run on a machine with a card: ``python -m pytest tests/test_torch_cuda.py``.
 chip_smoke.py makes the same checks at the main path's full shapes.
 """
 
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -607,8 +610,8 @@ def _tensors(out):
 def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
     """Six chained steps, the first captured: every replay on inputs
     unlike the capture's equals the eager train_step fed the same tensors,
-    bit for bit; the inputs are left untouched; B1-B4's counters count
-    one launch per call, replays included."""
+    bit for bit; the inputs are left untouched; B1-B4's and preprocess's
+    two kernels' counters count one launch per call, replays included."""
     steps = compiled.CompiledStep()
     state = _state(cuda)
     opt = adam_mod.init(state.params)
@@ -631,7 +634,7 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
         want = step.train_step(*args, **kw)
         n0 = _launches()
         got = steps.train_step(*args, **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1, 1, 1, 1]
+        assert [b - a for a, b in zip(n0, _launches())] == [1] * 6
         for a, b in zip(_tensors(got), _tensors(want)):
             assert torch.equal(a, b)
         assert all(torch.equal(a, b) for a, b in zip(before, given))
@@ -642,10 +645,31 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
     assert float(got[2].loss) > 0.0 and not bool(got[2].instance_overflow)
 
 
+def test_no_cyclic_collection_runs_inside_a_capture(cuda):
+    """The cyclic collector is off while a graph is captured and on again
+    after; the warm-up runs with it on. A collection inside a capture
+    could destroy an unreachable graph (a dropped CompiledStep held in a
+    reference cycle), which a "global" capture does not permit: the
+    capture would fail. The graph replays."""
+    seen = []
+
+    def fn(bufs, on_stage):
+        seen.append(gc.isenabled())
+        return [bufs[0] * 2.0]
+
+    x = torch.arange(4.0, device=cuda)
+    g = compiled._Graph(fn, [x], [torch.empty_like(x)], x.device,
+                        torch.cuda.graph_pool_handle())
+    assert seen == [True, False] and gc.isenabled()
+    out = g([x + 1.0], x.device, lambda name: contextlib.nullcontext())
+    assert torch.equal(out[0], (x + 1.0) * 2.0)
+
+
 def test_compiled_eval_render_replays_equal_eager(cuda):
     """Five frames through one graph: another camera, n_alive, low_pass,
     background and scale_modifier each time; each equals the eager
-    eval_render bit for bit, and B1 and B3 count one launch per frame."""
+    eval_render bit for bit, and B1, B3 and preprocess's forward count one
+    launch per frame."""
     steps = compiled.CompiledStep()
     state = _state(cuda)
     kw = dict(width=W, height=H, sh_degree=3, max_instances=M)
@@ -658,7 +682,7 @@ def test_compiled_eval_render_replays_equal_eager(cuda):
         n0 = _launches()
         got = steps.eval_render(st, x["camera"], x["bg"], x["low_pass"], sm,
                                 **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1, 0, 1, 0]
+        assert [b - a for a, b in zip(n0, _launches())] == [1, 0, 1, 0, 1, 0]
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.num_instances) > 0
@@ -1001,7 +1025,8 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
     """Two ranks, one card each, over NCCL (launch.spawn's default for
     cards): the sharded step through CompiledStep is captured once per rank
     and its 5 replays each equal the eager NCCL step bit for bit on every
-    rank, with B1-B4 counted once per replay. Skips with fewer than two
+    rank, with B1-B4 counted once per replay (preprocess's kernels never:
+    the sharded step takes the plain ops). Skips with fewer than two
     cards."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards: one per NCCL rank")
@@ -1020,4 +1045,5 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
     for r in ranks:
         assert r["equal"] == [True] * 5, r
         assert (r["graphs"], r["captures"]) == (1, 1)
-        assert r["launches"] == [[1, 1, 1, 1]] * 5
+        # the sharded step preprocesses with plain ops (colors_override)
+        assert r["launches"] == [[1, 1, 1, 1, 0, 0]] * 5

@@ -54,7 +54,8 @@ SMOKE_HELPERS = [ROOT / "tests" / "torch_expand_cases.py",
                  ROOT / "tests" / "torch_step_kernels.py",
                  ROOT / "tests" / "torch_gt_images.py",
                  ROOT / "tests" / "torch_cli_rank.py",
-                 ROOT / "tests" / "torch_round_cases.py"]
+                 ROOT / "tests" / "torch_round_cases.py",
+                 ROOT / "tests" / "torch_preprocess_cases.py"]
 # modules the walk must find, one of each package
 WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.data.colmap", "rain_tpu_torch.native",

@@ -4,8 +4,9 @@
 
 runs ``rain_tpu_torch.scripts.train.main`` on the flags, the function that
 ``python -m rain_tpu_torch.scripts.train`` runs, in this process, then
-writes to COUNTS.json the launch counts of B1-B4 over the run (every count
-is 0 when the process starts), the Trainer's report frames and
+writes to COUNTS.json the launch counts of B1-B4 and of preprocess's two
+kernels over the run (every count is 0 when the process starts), the
+Trainer's report frames and
 re-renders, its final population, capacity and tier, the host time of
 ``Trainer.train`` (on a card up to a synchronize) per iteration, and the
 median host time from one iteration's start to the next one's. The
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import preprocess as prep_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.scripts import train
 from rain_tpu_torch.train import trainer as trainer_mod
@@ -29,7 +31,9 @@ from rain_tpu_torch.train import trainer as trainer_mod
 KERNELS = {"expand_instances": expand_ops.expand_instances,
            "composite_forward": tile_render.composite_forward,
            "composite_backward": tile_render.composite_backward,
-           "reduce_instances": expand_ops.reduce_instances}
+           "reduce_instances": expand_ops.reduce_instances,
+           "preprocess_forward": prep_ops.preprocess_forward,
+           "preprocess_backward": prep_ops.preprocess_backward}
 
 
 def main(argv):
