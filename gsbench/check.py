@@ -56,6 +56,22 @@ def moved_leaves(first_grad: dict, floor: float = 1e-3) -> list:
     return [k for k, v in first_grad.items() if v >= floor * median]
 
 
+def train_numbers(prog_rec: dict, ref_rec: dict) -> dict:
+    """The numbers of a training cell: ``prog_rec`` (the program's record
+    of its first steps, or a reference's in its place) against the
+    reference's ``ref_rec``. A record holds per step the loss and the
+    instance count, per leaf the first gradient's norm and the change's,
+    and the statistics' norms."""
+    moved = moved_leaves(ref_rec["first_grad"])
+    return {"loss": rel_gap(prog_rec["loss"], ref_rec["loss"]),
+            "grad": norm_gap(prog_rec["first_grad"], ref_rec["first_grad"]),
+            "change": norm_gap(prog_rec["change"],
+                               {k: ref_rec["change"][k] for k in moved}),
+            "stats": norm_gap(prog_rec["stats"], ref_rec["stats"]),
+            "instances": rel_gap(prog_rec["instances"],
+                                 ref_rec["instances"])}
+
+
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
     """(every number within its limit, {name: {value, limit}})."""
     shown = {k: {"value": numbers[k], "limit": limits[k]} for k in numbers}

@@ -32,6 +32,7 @@ CHECKED = 3
 class Loop:
     kind = "train"
     metrics = {"train_ms_per_iter": "ms"}
+    checked_steps = CHECKED   # the first steps that the check compares
 
     def __init__(self, cfg: dict, traffic: dict, seed: int,
                  device: torch.device, prog):
@@ -54,7 +55,9 @@ class Loop:
         self.fault = None
 
     # --- set-up -------------------------------------------------------
-    def setup(self, mark) -> None:
+    def inputs(self) -> None:
+        """The seed's scene (``p0``), targets, poses and background: what
+        the program and the reference are both given."""
         cfg, dev = self.cfg, self.dev
         self.p0 = scene.make_params(cfg, self.seed, dev)
         self.targets = scene.make_targets(camera.N_POSES, cfg["height"],
@@ -63,13 +66,21 @@ class Loop:
                                   for k in range(camera.N_POSES)], dev)
         self.bg = torch.tensor(self.traffic["background"],
                                dtype=torch.float32, device=dev)
-        self.s0 = self.prog.state(self.p0)
+
+    def start_state(self):
+        """The program's state at the start of every episode."""
+        return self.prog.state(self.p0)
+
+    def setup(self, mark) -> None:
+        dev = self.dev
+        self.inputs()
+        self.s0 = self.start_state()
         self.steps = self.prog.compiled_step()
         _sync(dev)
         mark("state")
         st, op = self.s0, self.prog.adam_init(self.s0)
         seen = []
-        for i in range(CHECKED):
+        for i in range(self.checked_steps):
             st, op, aux = self._step(st, op, i)
             seen.append((float(aux.loss), int(aux.num_instances),
                          bool(aux.instance_overflow)))
@@ -87,9 +98,9 @@ class Loop:
                       for k, v in self.prog.stats_of(st).items()}}
         del params
         mark("first_steps")
-        self.i = CHECKED
+        self.i = self.checked_steps
         self.cur = (st, op)
-        for _ in range(self.traffic["warm_steps"] - CHECKED):
+        for _ in range(self.traffic["warm_steps"] - self.checked_steps):
             self._advance()
         _sync(dev)
         mark("warm")
@@ -159,17 +170,9 @@ class Loop:
     def check(self) -> tuple[dict, int]:
         """(the gaps of the first steps against the reference, the
         program's overflowed steps among them)."""
-        r = self.reference(self.p0)
-        numbers = {
-            "loss": check.rel_gap(self.checked["loss"], r["loss"]),
-            "grad": check.norm_gap(self.first_grad, r["first_grad"]),
-            "change": check.norm_gap(
-                self.checked["change"],
-                {k: r["change"][k]
-                 for k in check.moved_leaves(r["first_grad"])}),
-            "stats": check.norm_gap(self.checked["stats"], r["stats"]),
-            "instances": check.rel_gap(self.checked["instances"],
-                                       r["instances"])}
+        numbers = check.train_numbers(
+            {**self.checked, "first_grad": self.first_grad},
+            self.reference(self.p0))
         return numbers, self.checked["overflow"]
 
     def reference(self, p0: dict, loss_fn=ref.training_loss) -> dict:
@@ -182,14 +185,15 @@ class Loop:
         stats = ref.stats_init(cfg["capacity"], dt, self.dev)
         opt = ref.adam_init(p)
         rec = {"loss": [], "instances": []}
-        for i in range(CHECKED):
+        for i in range(self.checked_steps):
             k = self.order[i % camera.N_POSES]
-            out = ref.train_step(p, stats, opt, camera.pick(self.cams, k),
-                                 self.targets[k], self.bg, self.hp,
-                                 width=cfg["width"], height=cfg["height"],
+            cam = camera.pick(self.cams, k)
+            out = ref.train_step(p, stats, opt, cam, self.targets[k],
+                                 self.bg, self.hp, width=cfg["width"],
+                                 height=cfg["height"],
                                  sh_degree=cfg["sh_degree"], loss_fn=loss_fn)
             rec["loss"].append(out.loss)
-            rec["instances"].append(out.instances)
+            rec["instances"].append(self.ref_instances(p, cam, out))
             if i == 0:
                 rec["first_grad"] = {
                     k: check.norm(v) / (1.0 - ref.BETA1)
@@ -198,6 +202,11 @@ class Loop:
         rec["change"] = {k: check.diff_norm(p[k], p0[k]) for k in ref.LEAVES}
         rec["stats"] = {k: check.norm(v) for k, v in stats.items()}
         return rec
+
+    def ref_instances(self, params: dict, cam: dict, out) -> int:
+        """The reference's count of the step from ``params`` at ``cam``
+        that the program's ``num_instances`` is compared with."""
+        return out.instances
 
     def work(self) -> list[tuple[counts.Work, dict]]:
         """Per traced step: the whole step's work and each kernel's, from

@@ -32,6 +32,17 @@ def load_all(folder: Path) -> dict:
     return out
 
 
+def read_all(folder: Path, tr) -> dict:
+    """{metric name: {value, unit}} of every reader in ``folder`` that
+    finds something to read in the reduced trace ``tr``."""
+    out = {}
+    for name, reader in load_all(folder).items():
+        value = reader.read(tr)
+        if value is not None:
+            out[name] = {"value": value, "unit": reader.UNIT}
+    return out
+
+
 def per_step_ms(tr, kind: str, keep) -> float | None:
     """Device ms per call of the ``kind`` loop's span, of the operations
     launched inside it that ``keep(op)``; None without such spans."""
@@ -46,7 +57,7 @@ def roofline_pct(tr, kind: str, kernel: str) -> float | None:
     """The kernel's share of its roofline over the traced calls: the
     least time of its counted work over its device time."""
     ms = per_step_ms(tr, kind, lambda o: KERNELS[kernel] in o.name)
-    if not ms:
+    if not ms or not tr.work:
         return None
     least = sum(bound_s(*k[kernel]) for _, k in tr.work) / len(tr.work)
     return 100.0 * least * 1e3 / ms

@@ -21,6 +21,30 @@ and, last, the compared numbers with their limits, which also end the
 standard error. The run fails, printing no result, without a CUDA card
 (or fewer than the cell asks for), or if jax, jaxlib, flax or rain_tpu
 was imported.
+
+A cell of ``chips`` > 1 runs as one rank per card (``run_ranks``): the
+parent builds the kernels and starts ``chips`` processes with the
+program's launcher (``program.spawn``: rank r on ``cuda:r``, one NCCL
+group) and holds no CUDA context while they run. Each rank
+(``ranks.run_rank``) makes the scene from the seed, keeps its shard,
+sets up, and then either runs the window, with a step count that the
+ranks agree on from the slowest rank's probe (a rank that stopped alone
+would hang the others in a collective), or traces the same calls as
+every other rank; it checks for forbidden modules, reads its peak and
+returns plain data. A rank that raises, dies or outlasts
+``ranks.TIMEOUT_S`` ends every rank and fails the run. The result's
+numbers come from: ``train_ms_per_iter``, the largest rank's window over
+the steps; ``setup_s``, the parent's module start to the window's start
+on rank 0 (one clock: ``perf_counter`` is shared by the processes);
+``peak_mem_gib`` and ``memory_peak_bytes``, the fullest rank;
+``device.count``, the distinct cards the ranks report having run on (the
+run fails, printing no result, where they are fewer than ``chips``, or
+of more than one kind); with ``--trace 1`` the per-layer readers and
+``breakdown`` read rank 0's trace, and ``busy_s`` and ``window_s`` are
+the least busy rank's. After the ranks have ended, the parent regenerates
+the whole scene from the seed on ``cuda:0`` and runs the plain reference
+once over it; the ranks' norms of their shards add up to the whole
+state's (the root of the sum of squares).
 """
 
 from __future__ import annotations
@@ -143,11 +167,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     metrics = {}
     if trace:
         tr = trace_mod.reduce(events, loop.kind, loop.work())
-        for name, reader in readers.load_all(
-                (root or ROOT) / "metrics").items():
-            value = reader.read(tr)
-            if value is not None:
-                metrics[name] = {"value": value, "unit": reader.UNIT}
+        metrics = readers.read_all((root or ROOT) / "metrics", tr)
     else:
         for name, value in e2e.items():
             metrics[name] = {"value": value, "unit": loop.metrics[name]}
@@ -163,6 +183,77 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if trace:
         dev_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
         result["breakdown"] = trace_mod.breakdown(tr)
+    result["checks"] = shown
+    _guard()
+    return result, lines
+
+
+def run_ranks(workload: str, seed: int, seconds: float, trace: bool,
+              device, root: Path | None = None, start: float = T0,
+              fault=None) -> tuple[dict, list]:
+    """A cell of several cards, one rank per card (see the module's
+    docstring); returns what ``run_cell`` does. ``fault``, in tests:
+    ``fault(rank, loop)`` is called in each rank once its loop is made."""
+    import torch
+
+    from gsbench import check, ranks
+    cell, cfg, traffic = cell_spec(workload, root)
+    marks, last = {}, [start]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name + "_s"] = now - last[0]
+        last[0] = now
+
+    mark("torch_import")
+    from gsbench import program as prog
+    mark("program_import")
+    built = prog.build_kernels(device)
+    mark("kernels")
+    job = ranks.Job(workload, seed, seconds, trace,
+                    None if root is None else str(root), start, last[0],
+                    fault)
+    reports = prog.spawn(ranks.run_rank, cell["chips"], device=device,
+                         timeout_s=ranks.TIMEOUT_S, args=(job,))
+    dev_info = ranks.devices(reports, cell["chips"])
+    _guard()
+    lead = reports[0]
+    peak = dev_info["memory_peak_bytes"]
+    lines = [{"setup": {"setup_s": lead["setup_s"], **marks,
+                        "rank0": lead["marks"], "built": built,
+                        "captures": lead["captures"]}},
+             {"nvidia_smi": {"before": lead["nvidia_smi"][0],
+                             "after": lead["nvidia_smi"][1]}},
+             {"memory": {"peak_allocated_bytes": [r["peak_bytes"]
+                                                  for r in reports],
+                         "peak_reserved_bytes": [r["reserved_bytes"]
+                                                 for r in reports]}},
+             {"instances_min_max": lead["instances"]},
+             {"ranks": [[r["rank"], r["current_device"], r["card"]]
+                        for r in reports]},
+             {"stage_ms_rank0": lead["stage_ms"]}]
+    ref_dev = torch.device(device.type, 0) if device.type == "cuda" \
+        else device
+    loop = importlib.import_module(
+        f"gsbench.loops.{traffic['loop']}").Loop(
+            cfg, traffic, seed, ref_dev, None, world=cell["chips"])
+    numbers, overflowed = loop.check_shards([r["check"] for r in reports])
+    failed = max(r["failed"] for r in reports) + overflowed
+    correct, shown = check.verdict(numbers, cell["limits"])
+    if trace:
+        metrics = lead["metrics"]
+        idle = min(reports, key=lambda r: r["busy_s"] / r["window_s"])
+        dev_info.update(busy_s=idle["busy_s"], window_s=idle["window_s"])
+    else:
+        metrics = {name: {"value": value, "unit": loop.metrics[name]}
+                   for name, value in lead["e2e"].items()}
+        metrics["peak_mem_gib"] = {"value": peak / 2**30, "unit": "GiB"}
+        metrics["setup_s"] = {"value": lead["setup_s"], "unit": "s"}
+    result = {"correct": bool(correct and failed == 0),
+              "attempted": lead["attempted"], "failed": failed,
+              "metrics": metrics, "device": dev_info}
+    if trace:
+        result["breakdown"] = lead["breakdown"]
     result["checks"] = shown
     _guard()
     return result, lines
@@ -184,10 +275,12 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
+    from gsbench.ranks import WrongDevices
+    runner = run_cell if cell["chips"] == 1 else run_ranks
     try:
-        result, lines = run_cell(args.workload, args.seed, args.seconds,
-                                 bool(args.trace), torch.device("cuda"))
-    except Forbidden as e:
+        result, lines = runner(args.workload, args.seed, args.seconds,
+                               bool(args.trace), torch.device("cuda"))
+    except (Forbidden, WrongDevices) as e:
         print(f"gsbench: {e}", file=sys.stderr)
         return 3
     for line in lines:
