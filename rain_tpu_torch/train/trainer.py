@@ -40,6 +40,7 @@ rain_tpu's process 0.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import random
 import time
@@ -48,6 +49,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from rain_tpu_torch import device as device_mod
 from rain_tpu_torch.data.dataset import SceneData
@@ -64,6 +66,11 @@ from rain_tpu_torch.train import step as step_mod
 
 # the bound past which an instance tier means a pathological scene
 MAX_INSTANCE_TIER = 1 << 27
+# the host ranges' prefix (rain.trainer.schedule, .dispatch, ...)
+SPAN = "rain.trainer."
+_NO_SPAN = contextlib.nullcontext()
+COUNTERS = ("syncs", "rounds", "appended", "pruned", "resets",
+            "capacity_grows", "tier_grows", "refires")
 
 
 def _round_up(x, m):
@@ -278,6 +285,18 @@ class Trainer:
         # (iteration, view, tier, re-render tier) of each report view that
         # overflowed the training tier and was rendered again
         self.report_rerenders = []
+        for name in COUNTERS:
+            setattr(self, name, 0)
+        self._profiling = False     # whether this iteration is traced
+
+    def counters(self) -> dict:
+        """{counter: count} of the loop's counters (see the module
+        docstring)."""
+        return {name: getattr(self, name) for name in COUNTERS}
+
+    def _span(self, name: str):
+        """The host range rain.trainer.<name> in a traced iteration."""
+        return record_function(SPAN + name) if self._profiling else _NO_SPAN
 
     # -- the state of a sharded run ---------------------------------------
     @property
@@ -371,6 +390,7 @@ class Trainer:
                 new_cap = _round_up(limit, 4096)
             self.log(f"[cap] growing capacity {cap} -> {new_cap} "
                      f"(alive {n})")
+            self.capacity_grows += 1
             state = gmod.grow_capacity(state, new_cap)
             opt = adam_mod.AdamState(
                 mu=self._pad_params(opt.mu, new_cap),
@@ -389,6 +409,7 @@ class Trainer:
         instance count, jump straight to the first ladder tier that fits
         (each intermediate tier would cost a discarded step)."""
         self.max_instances = _fitting_tier(self.max_instances, min_needed)
+        self.tier_grows += 1
         self.log(f"[cap] growing instance buffer -> {self.max_instances}")
 
     # -- one optimization step ---------------------------------------------
@@ -448,13 +469,15 @@ class Trainer:
         non-finite data (the reference's exact-resize contract,
         rasterize_points.cu:16-22)."""
         prev = (self.state, self.opt_state)
-        state, opt, flags = self._dispatch(args)
+        with self._span("dispatch"):
+            state, opt, flags = self._dispatch(args)
         self.state, self.opt_state = state, opt
         new_p = (self.iteration, flags, prev, args)
         old_p = self._pending
         self._pending = new_p
         if old_p is not None:
-            self._verify(old_p, refire=True)
+            with self._span("verify"):
+                self._verify(old_p, refire=True)
         if not self.system.pipeline:
             return self.flush_pending()
         return None
@@ -480,24 +503,27 @@ class Trainer:
         input was the discarded state. On a non-finite loss: dump the
         pre-step state and raise. Returns the verified scalar values."""
         iteration, flags, (prev_state, prev_opt), args = pending
+        self.syncs += 1
         loss, ovf, ninst, l1 = flags.read()
         if ovf > 0.0:
-            later = self._pending if refire and \
-                self._pending is not pending else None
-            self.log(f"[cap] instance overflow at iter {iteration} "
-                     f"({ninst} > {self.max_instances}) — discarding "
-                     f"step(s) and retrying at a larger tier")
-            self.state, self.opt_state = prev_state, prev_opt
-            self._pending = None
-            self._grow_instances(min_needed=ninst)
-            verified = self._run_step_sync(args, iteration)
-            if later is not None:
-                l_iter, _, _, l_args = later
-                prev = (self.state, self.opt_state)
-                state, opt, lflags = self._dispatch(l_args)
-                self.state, self.opt_state = state, opt
-                self._pending = (l_iter, lflags, prev, l_args)
-            return verified
+            self.refires += 1
+            with self._span("refire"):
+                later = self._pending if refire and \
+                    self._pending is not pending else None
+                self.log(f"[cap] instance overflow at iter {iteration} "
+                         f"({ninst} > {self.max_instances}) — discarding "
+                         f"step(s) and retrying at a larger tier")
+                self.state, self.opt_state = prev_state, prev_opt
+                self._pending = None
+                self._grow_instances(min_needed=ninst)
+                verified = self._run_step_sync(args, iteration)
+                if later is not None:
+                    l_iter, _, _, l_args = later
+                    prev = (self.state, self.opt_state)
+                    state, opt, lflags = self._dispatch(l_args)
+                    self.state, self.opt_state = state, opt
+                    self._pending = (l_iter, lflags, prev, l_args)
+                return verified
         if not np.isfinite(loss):
             self._abort_non_finite(iteration, prev_state, prev_opt)
         return _Verified(loss=loss, l1=l1, num_instances=ninst,
@@ -510,6 +536,7 @@ class Trainer:
         while True:
             prev_state, prev_opt = self.state, self.opt_state
             state, opt, flags = self._dispatch(args)
+            self.syncs += 1
             loss, ovf, ninst, l1 = flags.read()
             if ovf > 0.0:
                 self.log(f"[cap] instance overflow at iter {iteration} "
@@ -529,17 +556,27 @@ class Trainer:
         if self._pending is None:
             return self._last_verified
         p, self._pending = self._pending, None
-        v = self._verify(p, refire=False)
+        with self._span("verify"):
+            v = self._verify(p, refire=False)
         self._last_verified = v
         return v
 
     # -- the loop ----------------------------------------------------------
     def train(self, iterations=None, *, test_iterations=(7000, 30000),
               save_iterations=(30000,), checkpoint_iterations=(),
-              start_checkpoint=None):
+              start_checkpoint=None, start=None):
+        """Train to ``iterations`` from iteration 0, from the checkpoint
+        file ``start_checkpoint`` or from ``start`` = (state, opt,
+        iteration, low_pass) in memory (``_restart``); returns the whole
+        final state."""
         opt_cfg = self.opt_cfg
         iterations = iterations or opt_cfg.iterations
         first_iter = 0
+        if start is not None and start_checkpoint:
+            raise ValueError("start and start_checkpoint are two starts")
+        if start is not None:
+            self._restart(*start)
+            first_iter = self.iteration
         if start_checkpoint:
             # a checkpoint from a long run can hold more Gaussians than
             # the fresh scene-derived capacity — size to fit with growth
@@ -568,32 +605,37 @@ class Trainer:
             t_iter0 = time.time()
             self.iteration = iteration
             self._profile_tick(iteration)
+            self._profiling = torch._C._autograd._profiler_enabled()
             if self.viewer is not None:
                 self.flush_pending()   # the viewer renders committed state
                 self._poll_viewer(iteration >= iterations)
-            cam = self._next_camera()
-            cam_arrays, gt = self._camera_bundle(cam)
+            with self._span("camera"):
+                cam = self._next_camera()
+                cam_arrays, gt = self._camera_bundle(cam)
 
-            xyz_lr = schedules.xyz_lr_at(
-                iteration, opt_cfg, self.spatial_lr_scale,
-                ours_new=self.rain.ours_new,
-                warmup_iter=self.rain.warmup_iter)
-            sh_deg = schedules.sh_degree_at(
-                iteration, self.model.sh_degree,
-                ours=self.rain.ours or self.rain.ours_new)
-            n_gauss = self.state.n_alive if iteration == 1 or \
-                iteration % int(self.rain.c2f_every_step) == 0 else 0
-            self.low_pass = schedules.c2f_low_pass(
-                iteration, c2f=self.rain.c2f,
-                c2f_every_step=self.rain.c2f_every_step,
-                c2f_max_lowpass=self.rain.c2f_max_lowpass,
-                densify_until_iter=self.densify_until,
-                height=cam.height, width=cam.width,
-                num_gaussians=n_gauss or 1, prev=self.low_pass)
+            with self._span("schedule"):
+                xyz_lr = schedules.xyz_lr_at(
+                    iteration, opt_cfg, self.spatial_lr_scale,
+                    ours_new=self.rain.ours_new,
+                    warmup_iter=self.rain.warmup_iter)
+                sh_deg = schedules.sh_degree_at(
+                    iteration, self.model.sh_degree,
+                    ours=self.rain.ours or self.rain.ours_new)
+                # the host's own count: no wait for the device
+                n_gauss = self.state.n_alive if iteration == 1 or \
+                    iteration % int(self.rain.c2f_every_step) == 0 else 0
+                self.low_pass = schedules.c2f_low_pass(
+                    iteration, c2f=self.rain.c2f,
+                    c2f_every_step=self.rain.c2f_every_step,
+                    c2f_max_lowpass=self.rain.c2f_max_lowpass,
+                    densify_until_iter=self.densify_until,
+                    height=cam.height, width=cam.width,
+                    num_gaussians=n_gauss or 1, prev=self.low_pass)
 
-            bg = self.background
-            if opt_cfg.random_background:          # train.py:94
-                bg = torch.rand(3, generator=self._gen, device=self.device)
+                bg = self.background
+                if opt_cfg.random_background:          # train.py:94
+                    bg = torch.rand(3, generator=self._gen,
+                                    device=self.device)
 
             in_densify = iteration < self.densify_until
             self._enqueue_step((cam, cam_arrays, gt, bg, self.low_pass,
@@ -622,35 +664,17 @@ class Trainer:
             # densification cadence (train.py:132-143)
             if in_densify and iteration > opt_cfg.densify_from_iter and \
                     iteration % opt_cfg.densification_interval == 0:
-                self.flush_pending()   # densify mutates verified state
-                state, opt = self._maybe_grow(*self._whole())
-                use_size = iteration > opt_cfg.opacity_reset_interval
-                abe = iteration <= self.rain.warmup_iter
-                noise = self._split_noise(state.capacity)
-                # the round's one wait for the device: the read of its info
-                # (rain_tpu/train/trainer.py:540)
-                state, opt, info = \
-                    self._steps.densify_and_prune(
-                        state, opt, noise,
-                        max_grad=opt_cfg.densify_grad_threshold,
-                        min_opacity=0.005,
-                        extent=self.scene.nerf_radius,
-                        percent_dense=opt_cfg.percent_dense,
-                        divide_ratio=self.divide_ratio,
-                        size_threshold=20.0,
-                        use_size_threshold=use_size,
-                        abe_split=abe)
-                if info.overflow:
-                    self.log("[cap] densify overflow — growing next round")
-                    state, opt = self._maybe_grow(state, opt, force=True)
-                self._keep(state, opt)
+                with self._span("round"):
+                    self._round(iteration)
             if in_densify and (
                     iteration % opt_cfg.opacity_reset_interval == 0 or
                     (self.model.white_background and
                      iteration == opt_cfg.densify_from_iter)):
-                self.flush_pending()
-                self.state, self.opt_state = self._steps.reset_opacity(
-                    self.state, self.opt_state, world=self.n_devices)
+                with self._span("reset"):
+                    self.flush_pending()
+                    self.state, self.opt_state = self._steps.reset_opacity(
+                        self.state, self.opt_state, world=self.n_devices)
+                self.resets += 1
 
             if iteration % self.system.log_every == 0 or \
                     iteration == iterations:
@@ -682,6 +706,48 @@ class Trainer:
         self.flush_pending()
         self._profile_tick(iterations + 1)   # close a still-open trace
         return self._whole()[0]
+
+    def _restart(self, state, opt, iteration: int, low_pass: float):
+        """Make (state, opt) of the whole capacity, with a Python n_alive,
+        the state after ``iteration`` with the c2f filter at ``low_pass``:
+        the camera order, the split-noise generator and the one-step-late
+        verification start as a new Trainer's. The tensors are held, not
+        copied (no step changes its inputs)."""
+        self._keep(state, opt)
+        self.iteration = iteration
+        self.low_pass = low_pass
+        self._pending = None
+        self._last_verified = None
+        self._viewpoint_stack = []
+        self._rng = random.Random(0)
+        self._gen.manual_seed(self.system.seed)
+        self.ema_loss = 0.0
+
+    def _round(self, iteration: int):
+        """The densify round of ``iteration`` (train.py:132-139)."""
+        opt_cfg = self.opt_cfg
+        self.flush_pending()   # densify mutates verified state
+        state, opt = self._maybe_grow(*self._whole())
+        use_size = iteration > opt_cfg.opacity_reset_interval
+        abe = iteration <= self.rain.warmup_iter
+        noise = self._split_noise(state.capacity)
+        # the round's one wait for the device: the read of its info
+        # (rain_tpu/train/trainer.py:540)
+        n0 = state.n_alive
+        state, opt, info = self._steps.densify_and_prune(
+            state, opt, noise, max_grad=opt_cfg.densify_grad_threshold,
+            min_opacity=0.005, extent=self.scene.nerf_radius,
+            percent_dense=opt_cfg.percent_dense,
+            divide_ratio=self.divide_ratio, size_threshold=20.0,
+            use_size_threshold=use_size, abe_split=abe)
+        self.syncs += 1
+        self.rounds += 1
+        self.pruned += info.n_pruned
+        self.appended += info.n_alive + info.n_pruned - n0
+        if info.overflow:
+            self.log("[cap] densify overflow — growing next round")
+            state, opt = self._maybe_grow(state, opt, force=True)
+        self._keep(state, opt)
 
     def _profile_tick(self, iteration: int):
         """Start/stop the torch.profiler trace of --profile_steps A-B (the

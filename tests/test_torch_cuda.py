@@ -1021,6 +1021,71 @@ def test_trainer_compiled_equals_eager_on_card(cuda, tmp_path, monkeypatch):
     assert len(a._steps.captures) >= 3 and not b._steps.captures
 
 
+def test_trainer_started_in_memory_compiled_equals_eager_on_card(
+        cuda, tmp_path, monkeypatch):
+    """Two episodes of ``Trainer.train(start=...)`` from one state in
+    memory (the --ours_new preset: abe_split rounds, the size threshold
+    past the reset), through the compiled step, round and reset (the
+    first episode captures each key, the second replays them), against
+    one episode with CompiledStep's methods replaced by the eager ones:
+    the same counters, n_alive and state bit for bit, two rounds and one
+    reset an episode, a graph per key."""
+    import dataclasses
+    from test_torch_trainer_port import make_scene
+    from rain_tpu_torch import config as cfg_mod
+    from rain_tpu_torch.train.trainer import Trainer
+    scene = make_scene(n_pts=400, size=64)
+
+    def episode(tr, s0):
+        before = tr.counters()
+        tr.train(18, start=(s0, adam_mod.init(s0.params), 6, 0.3))
+        tensors = (list(tr.state.params) + list(tr.opt_state.mu) +
+                   list(tr.opt_state.nu) +
+                   [getattr(tr.state, k) for k in gmod.STAT_FIELDS])
+        return ({k: v - before[k] for k, v in tr.counters().items()},
+                tr.state.n_alive, [x.clone() for x in tensors])
+
+    runs = []
+    for eager in (False, True):
+        with monkeypatch.context() as mp:
+            if eager:
+                mp.setattr(compiled.CompiledStep, "train_step",
+                           lambda self, *a, **kw: step.train_step(*a, **kw))
+                mp.setattr(compiled.CompiledStep, "densify_and_prune",
+                           lambda self, *a, **kw:
+                           densify_mod.densify_and_prune(*a, **kw))
+                mp.setattr(compiled.CompiledStep, "reset_opacity",
+                           lambda self, s, o, **kw:
+                           densify_mod.reset_opacity(s, o))
+            cfgs = cfg_mod.extract_all(cfg_mod.build_parser("t").parse_args(
+                ["--ours_new"]))
+            cfgs["opt"] = dataclasses.replace(
+                cfgs["opt"], densify_from_iter=4, densification_interval=6,
+                opacity_reset_interval=12)
+            cfgs["system"] = dataclasses.replace(
+                cfgs["system"], capacity=4096, max_instances=65536)
+            tr = Trainer(scene, cfg_mod.apply_method_presets(cfgs),
+                         str(tmp_path / str(eager)), device=cuda,
+                         log_fn=lambda *a: None, tensorboard=False)
+            s0 = tr.state
+            runs.append([episode(tr, s0) for _ in range(1 if eager else 2)])
+            keys = (tr._steps.densify_keys, tr._steps.reset_keys,
+                    len(tr._steps.captures))
+            if not eager:
+                captured = keys
+    (first, second), (want,) = runs
+    for got in (first, second):
+        assert got[0] == want[0] and got[1] == want[1]
+        assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got[2], want[2]))
+    assert want[0]["rounds"] == 2 and want[0]["resets"] == 1
+    assert want[0]["refires"] == 0
+    densify_keys, reset_keys, n_captures = captured
+    assert {k.use_size_threshold for k in densify_keys} == {False, True}
+    assert all(k.abe_split for k in densify_keys) and len(reset_keys) == 1
+    assert n_captures == 4 and keys[2] == 0
+
+
 def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
     """Two ranks, one card each, over NCCL (launch.spawn's default for
     cards): the sharded step through CompiledStep is captured once per rank
