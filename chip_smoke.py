@@ -46,9 +46,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 4. The training main path, bench.py's 262k train tier: the scene is
    perturbed (seeded xyz noise, an opacity and a colour shift) and
    train_step takes 5 steps, one per pose, with the lrs of bench.py:79-80.
-   The six launch counters (B1-B4 and preprocess's forward and backward
-   kernels) are set to 0 just before and read just after: each kernel
-   launched once per step. Loss and params are finite, no
+   The eight launch counters (B1-B4, preprocess's forward and backward
+   kernels, the SSIM map's) are set to 0 just before and read just after:
+   each kernel launched once per step. Loss and params are finite, no
    step overflows, and the loss at pose 0 after the steps is below step
    0's. Step 0 taken again from the same state gives the same params, Adam
    moments and statistics bit for bit.
@@ -358,11 +358,22 @@ Phases, in order; any failure exits non-zero before the result lines:
    at 4,194,304 Gaussians), the plain version's forward and forward plus
    backward ms, the gradients' gaps. Printed as one {"preprocess": ...}
    line.
+18. The SSIM map's two kernels (ops.losses: csrc/ssim.cu) on seeded
+   images at 1297x840, its 1312x848 bucket, a band of the four-rank layout
+   (3x256x1312) and N = 2: SF's map against ssim_map_plain bit for bit;
+   SB's gradient against autograd through ssim_map_plain (within twice
+   the gap of autograd's f32 gradient to its f64 one, or 1e-6); SB run
+   twice bit for bit. Recorded: each kernel's ms beside its bound, the
+   plain version's forward and forward plus backward ms, and at the
+   bucket the masked training loss forward and backward; the resident
+   blocks per SM. Phase 4 also counts one launch of each per step.
+   Printed as one {"ssim": ...} line.
 
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
-(each kernel's launches in phase 4, and in phases 8, 9, 10, 11, 12, 13
-and 15; B1-B4's ms and bound ms at phase 12's tiers, preprocess's
-kernels' at phase 17's 4m scene; the rounds of phases 7, 9, 12, 13 and
+(each kernel's launches in phase 4, and but for the SSIM map's two in
+phases 8, 9, 10, 11, 12, 13 and 15; B1-B4's ms and bound ms at phase
+12's tiers, preprocess's kernels' at phase 17's 4m scene, the SSIM
+map's at phase 18's 1297x840; the rounds of phases 7, 9, 12, 13 and
 16 launch none of them) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
@@ -3722,6 +3733,105 @@ def preprocess_phase():
     return rec
 
 
+# the SSIM phase: the main path's image, its bucket, a band of the
+# four-rank layout (14 tile rows and a halo row a side), N = 2
+SSIM_SHAPES = ((3, 840, 1297), (3, 848, 1312), (3, 256, 1312),
+               (2, 3, 40, 56))
+SSIM_SEED = 4195000018
+# bytes a pixel (f32): SF reads both images and writes the map and its
+# three partials, SB reads the images, d_map and the partials and writes
+# d_img1; f32 operations a pixel: SF's 3 products, 2 x 5 x 21 of the two
+# blur passes, 16 of the map and 13 of the partials; SB's 3 products,
+# 2 x 3 x 21 of the passes and 4 of the sum
+SSIM_BYTES_FWD, SSIM_BYTES_BWD = 6 * 4, 7 * 4
+SSIM_OPS_FWD, SSIM_OPS_BWD = 3 + 210 + 16 + 13, 3 + 126 + 4
+SSIM_KERNELS = (("ssim_forward", "launches_fwd"),
+                ("ssim_backward", "launches_bwd"))
+
+
+def ssim_phase():
+    """The SSIM map's kernels SF and SB against the plain version and
+    timed (phase 18): SF's map bit for bit, SB's gradient as near the f64
+    gradient as autograd's f32 one (within twice its gap, or 1e-6), SB
+    twice bit for bit; at 1312x848 the masked training loss, forward and
+    backward, through the kernels and through the plain version. Returns
+    {shape: record} and the resident blocks per SM."""
+    blocks = (ctypes.c_int * 2)()
+    _build.launch(_build.kernel("ssim", "rain_ssim_occupancy",
+                                (ctypes.c_void_p,)), DEV,
+                  ctypes.addressof(blocks))
+    rec = {"blocks_per_sm": {"ssim_forward": blocks[0],
+                             "ssim_backward": blocks[1]}}
+    rng = np.random.default_rng(SSIM_SEED)
+    for shape in SSIM_SHAPES:
+        a = rng.uniform(0, 1, shape).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+        a, b = (torch.from_numpy(v).to(DEV).reshape((-1,) + v.shape[-3:])
+                for v in (a, b))
+        d = torch.from_numpy(rng.normal(size=a.shape).astype(
+            np.float32)).to(DEV)
+        if not bitwise_equal(loss_ops.ssim_map(a, b),
+                             loss_ops.ssim_map_plain(a, b)):
+            raise AssertionError(f"SF differs from the plain version at "
+                                 f"{shape}")
+
+        def grad(fn, dtype):
+            x = a.to(dtype).requires_grad_(True)
+            return torch.autograd.grad(fn(x, b.to(dtype)), x,
+                                       d.to(dtype))[0].double()
+
+        got = grad(loss_ops.ssim_map, torch.float32)
+        if not bitwise_equal(got, grad(loss_ops.ssim_map, torch.float32)):
+            raise AssertionError(f"SB is not reproducible at {shape}")
+        exact = grad(loss_ops.ssim_map_plain, torch.float64)
+        gap = float((got - exact).abs().max() / exact.abs().max())
+        plain_gap = float((grad(loss_ops.ssim_map_plain, torch.float32) -
+                           exact).abs().max() / exact.abs().max())
+        if not gap <= max(2 * plain_gap, 1e-6):
+            raise AssertionError(f"SB at {shape}: gap {gap:.3g} to the f64 "
+                                 f"gradient, autograd's f32 {plain_gap:.3g}")
+        partials = loss_ops.ssim_forward(a, b)[1:]
+        px = a.numel()
+        r = {"sb_gap": gap, "plain_f32_gap": plain_gap,
+             "forward_ms": device_ms(lambda: loss_ops.ssim_forward(a, b)),
+             "backward_ms": device_ms(lambda: loss_ops.ssim_backward(
+                 a, b, d, partials)),
+             "forward_bound_ms": bound(px * SSIM_BYTES_FWD,
+                                       px * SSIM_OPS_FWD)[0],
+             "backward_bound_ms": bound(px * SSIM_BYTES_BWD,
+                                        px * SSIM_OPS_BWD)[0],
+             "plain_forward_ms": device_ms(
+                 lambda: loss_ops.ssim_map_plain(a, b), reps=5)}
+        x = a.clone().requires_grad_(True)
+        r["plain_forward_backward_ms"] = device_ms(
+            lambda: torch.autograd.grad(loss_ops.ssim_map_plain(x, b), x, d),
+            reps=5)
+        if shape == (3, 848, 1312):   # the bucketed training loss
+            img = a[0].clone().requires_grad_(True)
+            gt = b[0].clone()
+            gt[:, 840:] = 0.0
+            gt[:, :, 1297:] = 0.0
+
+            def loss_both():
+                loss, _ = loss_ops.masked_training_loss(img, gt, 1297, 840)
+                torch.autograd.grad(loss, img)
+
+            r["masked_loss_ms"] = device_ms(loss_both, reps=10)
+        rec["x".join(map(str, shape))] = r
+        print(f"SSIM {shape}: SF {r['forward_ms']:.4f} ms (bound "
+              f"{r['forward_bound_ms']:.4f}, plain "
+              f"{r['plain_forward_ms']:.3f}), SB {r['backward_ms']:.4f} ms "
+              f"(bound {r['backward_bound_ms']:.4f}, plain forward and "
+              f"backward {r['plain_forward_backward_ms']:.3f}); SF bit for "
+              f"bit, SB gap {gap:.3g} (autograd f32 {plain_gap:.3g})" +
+              (f", masked loss forward and backward "
+               f"{r['masked_loss_ms']:.3f} ms" if "masked_loss_ms" in r
+               else ""))
+        del a, b, d, got, exact, partials, x
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3750,8 +3860,8 @@ def main(out: Path | None = None):
     print(f"resident blocks per SM: {blocks_per_sm}")
     if sorted(p.stem for p in _build.CSRC.glob("*.cu")) != [
             "expand", "marks", "preprocess_bwd", "preprocess_fwd", "reduce",
-            "tile_render_bwd", "tile_render_fwd"]:
-        raise AssertionError("expected the six kernels' sources and the "
+            "ssim", "tile_render_bwd", "tile_render_fwd"]:
+        raise AssertionError("expected the eight kernels' sources and the "
                              "stage marks'")
     b1_cases = b1_edge_cases()
     b2_cases = b2_edge_cases()
@@ -3844,6 +3954,8 @@ def main(out: Path | None = None):
     opt0 = adam_mod.init(state0.params)
     torch.cuda.synchronize()
     reset_counts()
+    for _, attr in SSIM_KERNELS:
+        setattr(loss_ops.ssim_map, attr, 0)
     s, o = state0, opt0
     auxes, step_ms, seen0, first_step = [], [], None, None
     for k in range(N_POSES):
@@ -3855,8 +3967,11 @@ def main(out: Path | None = None):
         if k == 0:
             seen0, first_step = seen, snapshot(s, o)
     train_launches = read_counts()
-    print(f"training path launches: {train_launches}")
-    if any(v != N_POSES for v in train_launches.values()):
+    ssim_launches = {name: getattr(loss_ops.ssim_map, attr)
+                     for name, attr in SSIM_KERNELS}
+    print(f"training path launches: {train_launches}, {ssim_launches}")
+    if any(v != N_POSES for v in (*train_launches.values(),
+                                  *ssim_launches.values())):
         raise AssertionError(f"expected {N_POSES} launches of each kernel")
     losses = [float(a.loss) for a in auxes]
     n_inst_train = [int(a.num_instances) for a in auxes]
@@ -4037,6 +4152,21 @@ def main(out: Path | None = None):
         k["launches_production"] = prod_rec["launches"][k["name"]]
         k["launches_ab"] = ab_rec["launches"][k["name"]]
 
+    # --- 18. the SSIM map's two kernels ---------------------------------
+    torch.cuda.empty_cache()
+    ssim_rec = ssim_phase()
+    at_full = ssim_rec["3x840x1297"]
+    for name, _ in SSIM_KERNELS:
+        what = name.split("_")[1]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "rain_tpu_torch/csrc/ssim.cu",
+            "replaces": "no Pallas kernel: rain_tpu left the loss to XLA",
+            "launches": ssim_launches[name], "ms": at_full[what + "_ms"],
+            "bound_ms": at_full[what + "_bound_ms"], "bound_by": "bytes",
+            "plain_ms": at_full["plain_forward_ms"] if what == "forward"
+            else at_full["plain_forward_backward_ms"]})
+
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
@@ -4083,6 +4213,7 @@ def main(out: Path | None = None):
         "compiled": compiled_rec,
         "rounds": round_rec,
         "preprocess": prep_rec,
+        "ssim": ssim_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:
@@ -4100,6 +4231,7 @@ def main(out: Path | None = None):
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"preprocess": prep_rec}))
+    print(json.dumps({"ssim": ssim_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

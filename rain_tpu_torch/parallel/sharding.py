@@ -178,7 +178,8 @@ def _band_loss_sums(color, gt_band, band_ty0: int, rows_per_band: int, *,
     color = color * in_image[None]
     gt = gt_band * in_image[None]
     l1_sum = torch.sum(torch.abs(color - gt) * in_band[None])
-    ssim_sum = torch.sum(loss_ops.ssim_map(color, gt)[0] * in_band[None])
+    ssim_sum = torch.sum(loss_ops.ssim_map(
+        color.contiguous(), gt.contiguous())[0] * in_band[None])
     return l1_sum, ssim_sum
 
 

@@ -53,9 +53,9 @@ device inputs of the graph:
   model.densify's does: it reads the round's packed info once (the
   round's only wait for the device, as rain_tpu's Trainer reads
   ``info.overflow`` once) and gives the new state a Python n_alive.
-- **Launch counters.** A replay adds to the ``launches`` of B1–B4 and
-  of preprocess's two kernels (``COUNTED``) the launches its capture
-  recorded; the capture itself adds none, and the
+- **Launch counters.** A replay adds to the launch counters of B1–B4,
+  of preprocess's two kernels and of the SSIM map's two (``COUNTED``)
+  the launches its capture recorded; the capture itself adds none, and the
   warm-up counts as the eager step it is: one count per call and kernel.
 - **Memory.** All graphs of one CompiledStep share one memory pool, and
   the graphs whose inputs have the same shapes share their input buffers.
@@ -111,6 +111,7 @@ from rain_tpu_torch.model import adam as adam_mod
 from rain_tpu_torch.model import densify as densify_mod
 from rain_tpu_torch.model import gaussians as gmod
 from rain_tpu_torch.ops import expand as expand_ops
+from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import preprocess as prep_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
@@ -119,11 +120,13 @@ from rain_tpu_torch.parallel import sharding
 from rain_tpu_torch.train import marks as marks_mod
 from rain_tpu_torch.train import step as step_mod
 
-# the kernel wrappers whose launch counters a replay adds to: B1–B4 and
-# preprocess's forward and backward
-COUNTED = (expand_ops.expand_instances, expand_ops.reduce_instances,
-           tile_render.composite_forward, tile_render.composite_backward,
-           prep_ops.preprocess_forward, prep_ops.preprocess_backward)
+# the launch counters a replay adds to, (wrapper, attribute): B1–B4's,
+# preprocess's forward and backward, the SSIM map's forward and backward
+COUNTED = tuple((f, "launches") for f in (
+    expand_ops.expand_instances, expand_ops.reduce_instances,
+    tile_render.composite_forward, tile_render.composite_backward,
+    prep_ops.preprocess_forward, prep_ops.preprocess_backward)) + (
+    (loss_ops.ssim_map, "launches_fwd"), (loss_ops.ssim_map, "launches_bwd"))
 CAMERA = ("world_view", "full_proj", "camera_center", "tanfovx", "tanfovy")
 OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
 # the densify round's per-call thresholds, f32
@@ -132,6 +135,11 @@ ROUND_SCALARS = ("max_grad", "min_opacity", "extent", "percent_dense",
 # the host spans' prefix (rain.compiled.<method>, .copy_in, ...)
 SPAN = "rain.compiled."
 _NO_SPAN = contextlib.nullcontext()
+
+
+def launch_counts() -> list[int]:
+    """The counters of ``COUNTED``, in its order."""
+    return [getattr(f, attr) for f, attr in COUNTED]
 
 
 class TrainKey(NamedTuple):
@@ -252,7 +260,7 @@ def _copy(dsts, srcs) -> None:
 
 class _Graph:
     """One key's graph: the static input buffers, the CUDA graph, its
-    static outputs, its stage marks and the launches of B1–B4 it holds.
+    static outputs, its stage marks and the kernel launches it holds.
 
     Built by the key's first call, whose result is the warm-up's: the
     eager step on the buffers, on a side stream, with its launches counted
@@ -276,7 +284,7 @@ class _Graph:
             if id(x) not in ids:
                 x.record_stream(here)   # made on the side stream, used here
         self.first = (first, [ids.get(id(x)) for x in first])
-        before = [k.launches for k in COUNTED]
+        before = launch_counts()
         self.marks = marks_mod.Marks(device)
         self.replays = 0
         self.graph = torch.cuda.CUDAGraph()
@@ -290,9 +298,9 @@ class _Graph:
         finally:
             if collecting:
                 gc.enable()
-            self.launches = [k.launches - n for k, n in zip(COUNTED, before)]
-            for k, n in zip(COUNTED, before):
-                k.launches = n
+            self.launches = [k - n for k, n in zip(launch_counts(), before)]
+            for (f, attr), n in zip(COUNTED, before):
+                setattr(f, attr, n)
         self.alias = [ids.get(id(x)) for x in self.outputs]
 
     def check(self, inputs, device) -> None:
@@ -324,8 +332,8 @@ class _Graph:
         with span("replay"):
             self.graph.replay()
         self.replays += 1
-        for k, n in zip(COUNTED, self.launches):
-            k.launches += n
+        for (f, attr), n in zip(COUNTED, self.launches):
+            setattr(f, attr, getattr(f, attr) + n)
         with span("copy_out"):
             fresh = [x for x, a in zip(self.outputs, self.alias)
                      if a is None]

@@ -184,6 +184,89 @@ def test_b2_writes_every_element_of_its_output(cuda):
                 d, exc, tiles))
 
 
+# --- the SSIM map's kernels SF and SB (ops/losses.py, csrc/ssim.cu) --------
+
+# 1297x840, its 1312x848 bucket, a band of the four-rank layout at
+# 1297x840 (14 tile rows and a halo row a side, 82 tiles wide:
+# parallel/sharding.py), 7x5 (under the window) and N = 2
+SSIM_SHAPES = [(3, 840, 1297), (3, 848, 1312), (3, 256, 1312), (3, 5, 7),
+               (2, 3, 40, 56)]
+
+
+def _ssim_inputs(shape, device, seed=0):
+    """A render-like image, a noisy target and a map cotangent."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+    d = rng.normal(size=(1,) * (4 - len(shape)) + shape).astype(np.float32)
+    return [torch.from_numpy(v).to(device) for v in (a, b, d)]
+
+
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_forward_kernel_equals_plain_bits(cuda, shape):
+    a, b, _ = _ssim_inputs(shape, cuda)
+    n0 = loss_ops.ssim_map.launches_fwd
+    got = loss_ops.ssim_map(a, b)
+    assert loss_ops.ssim_map.launches_fwd == n0 + 1
+    want = loss_ops.ssim_map_plain(a, b)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_backward_kernel_matches_autograd(cuda, shape):
+    """SB against autograd through ssim_map_plain: within 1e-6 of the f64
+    gradient, or, where the plain version's f32 moments put autograd's own
+    f32 gradient further off it, within twice that (the CPU tests measure
+    both at 1.2-1.8e-6 on such images); two runs bitwise equal."""
+    a, b, d = _ssim_inputs(shape, cuda, seed=1)
+
+    def grad(fn, dtype):
+        x = a.to(dtype).requires_grad_(True)
+        return torch.autograd.grad(fn(x, b.to(dtype)), x,
+                                   d.to(dtype))[0].double()
+
+    def gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    n0 = loss_ops.ssim_map.launches_bwd
+    got = grad(loss_ops.ssim_map, torch.float32)
+    assert loss_ops.ssim_map.launches_bwd == n0 + 1
+    exact = grad(loss_ops.ssim_map_plain, torch.float64)
+    plain = grad(loss_ops.ssim_map_plain, torch.float32)
+    assert gap(got, exact) <= max(2 * gap(plain, exact), 1e-6)
+    again = grad(loss_ops.ssim_map, torch.float32)
+    assert torch.equal(got, again)
+
+
+def test_ssim_kernels_write_every_element(cuda):
+    for shape in SSIM_SHAPES:
+        a, b, d = (t.reshape((-1,) + t.shape[-3:]) for t in
+                   _ssim_inputs(shape, cuda, seed=2))
+        # NaN in the allocator's cache first, so that an element SF or SB
+        # failed to write shows
+        junk = torch.full((8 * a.numel() + 8192,), float("nan"),
+                          device=cuda)
+        del junk
+        out = loss_ops.ssim_forward(a, b)
+        junk = torch.full((8 * a.numel() + 8192,), float("nan"),
+                          device=cuda)
+        del junk
+        d_img1 = loss_ops.ssim_backward(a, b, d, out[1:])
+        for t in (*out, d_img1):
+            assert t.shape == a.shape and bool(torch.isfinite(t).all())
+
+
+def test_ssim_map_rejects_what_the_kernels_do_not_take(cuda):
+    a, b, _ = _ssim_inputs((3, 16, 20), cuda)
+    for args in ((a, b.clone().requires_grad_(True)), (a.half(), b.half()),
+                 (a.transpose(1, 2), b.transpose(1, 2)), (a, b.cpu())):
+        with pytest.raises(ValueError):
+            loss_ops.ssim_map(*args)
+    with pytest.raises(ValueError):
+        loss_ops.ssim_map(a, b, window_size=7)
+
+
 @pytest.mark.parametrize("real_wh", [None, (150, 100)])
 def test_train_step_makes_no_synchronising_call(cuda, real_wh):
     """train_step queues its work and returns: no call in it waits for the
@@ -562,7 +645,7 @@ def test_e2e_long_run_on_card_passes_the_tests_assertions(cuda, tmp_path):
 # --- the compiled step (train.compiled): CUDA graphs per key ---------------
 
 def _launches():
-    return [f.launches for f in compiled.COUNTED]
+    return compiled.launch_counts()
 
 
 def _step_inputs(device, k, bucketed):
@@ -610,8 +693,9 @@ def _tensors(out):
 def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
     """Six chained steps, the first captured: every replay on inputs
     unlike the capture's equals the eager train_step fed the same tensors,
-    bit for bit; the inputs are left untouched; B1-B4's and preprocess's
-    two kernels' counters count one launch per call, replays included."""
+    bit for bit; the inputs are left untouched; B1-B4's, preprocess's
+    two kernels' and the SSIM map's two counters count one launch per
+    call, replays included."""
     steps = compiled.CompiledStep()
     state = _state(cuda)
     opt = adam_mod.init(state.params)
@@ -634,7 +718,7 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
         want = step.train_step(*args, **kw)
         n0 = _launches()
         got = steps.train_step(*args, **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1] * 6
+        assert [b - a for a, b in zip(n0, _launches())] == [1] * 8
         for a, b in zip(_tensors(got), _tensors(want)):
             assert torch.equal(a, b)
         assert all(torch.equal(a, b) for a, b in zip(before, given))
@@ -682,7 +766,9 @@ def test_compiled_eval_render_replays_equal_eager(cuda):
         n0 = _launches()
         got = steps.eval_render(st, x["camera"], x["bg"], x["low_pass"], sm,
                                 **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1, 0, 1, 0, 1, 0]
+        # B1, B3 and preprocess's forward; the render runs no SSIM
+        assert [b - a for a, b in zip(n0, _launches())] == \
+            [1, 0, 1, 0, 1, 0, 0, 0]
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.num_instances) > 0
@@ -1111,4 +1197,4 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
         assert r["equal"] == [True] * 5, r
         assert (r["graphs"], r["captures"]) == (1, 1)
         # the sharded step preprocesses with plain ops (colors_override)
-        assert r["launches"] == [[1, 1, 1, 1, 0, 0]] * 5
+        assert r["launches"] == [[1, 1, 1, 1, 0, 0, 1, 1]] * 5

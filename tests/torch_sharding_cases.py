@@ -172,10 +172,10 @@ def captured_sharded_step(rank, device, arrays, n_alive, tier, replays):
     steps.sharded_train_step(*args, **kw)
     equal, launches = [], []
     for _ in range(replays):
-        before = [f.launches for f in compiled.COUNTED]
+        before = compiled.launch_counts()
         got = _step_tensors(steps.sharded_train_step(*args, **kw))
-        launches.append([f.launches - n
-                         for f, n in zip(compiled.COUNTED, before)])
+        launches.append([k - n for k, n in zip(compiled.launch_counts(),
+                                               before)])
         equal.append(all(_same_bits(a, b) for a, b in zip(got, flat)))
     return {"equal": equal, "graphs": len(steps.graphs),
             "captures": len(steps.captures), "launches": launches,
