@@ -4,7 +4,8 @@ Run from the repository root, with one CUDA card:
 
     python3 chip_smoke.py [--out RECORD.json]
 
-Phases, in order; any failure exits non-zero before the result lines:
+Phases, in order (number 10 is unused; the later phases keep their
+numbers); any failure exits non-zero before the result lines:
 
 1. The card's name and power limit (nvidia-smi), then the build of every
    kernel under rain_tpu_torch/csrc with nvcc, timed. Then B1
@@ -165,22 +166,6 @@ Phases, in order; any failure exits non-zero before the result lines:
    re-renders, peak memory, round 5's counts beside the port's, and the
    device's busy time, launches and idle share over iterations 400-409
    (torch.profiler through the CLI's --profile_steps).
-10. The A/B paths of rain_tpu (RAIN_TPU_SORT, RAIN_TPU_EXPAND,
-   RAIN_TPU_REDUCE), keyword arguments in the port, at phase 4's step 0
-   (the perturbed 262k proxy, pose 0, its render as ground truth):
-   render and the training loss's gradients through B2 (the main path),
-   through the scatter reduction and through the legacy expansion, each
-   twice. Checked: each path's two runs equal bit for bit; neither A/B
-   path launches B2; no path launches preprocess's kernels (render.render
-   from activated tensors runs the plain preprocess); bin_gaussians with
-   torch.sort and with the bitonic network give one Binning, the legacy
-   path's; the legacy and the fused
-   path give one image, depth, alpha, final T and n_contrib, one instance
-   order (tiles and depth ranks of the sorted keys, and the packs) bit
-   for bit; with the scatter reduction their gradients are equal bit for
-   bit; the scatter reduction against B2 within the gradient bar 1e-4.
-   Recorded: the launches of the six runs, a frame's time through each
-   expansion, bin_gaussians' time with each sort.
 11. The sharded step (rain_tpu_torch.parallel), its ranks sharing the card
    over gloo (parallel.launch.spawn, one process per rank). First B1, B3
    and B4 at tile offset -82 on a band of 29 rows at full width whose
@@ -439,6 +424,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from gsbench import camera as gsbench_camera  # noqa: E402
 from gsbench import scene as gsbench_scene  # noqa: E402
+# the H100's peaks, the compositors' operation counts and the roofline
+from gsbench.work import (OPS_BWD_COMP, OPS_COMP, OPS_EVAL,  # noqa: E402
+                          PEAK_BYTES_S, PEAK_F32_OPS_S, bound_s)
 
 DEV = torch.device("cuda")
 WIDTH, HEIGHT = 1297, 840            # garden at images_4 (bench.py:58)
@@ -450,27 +438,8 @@ LOW_PASS = 0.3
 XYZ_LR = 1.6e-4                                              # bench.py:85
 OPT_LEAVES = {"feature_lr": 0.0025, "opacity_lr": 0.05,      # bench.py:79
               "scaling_lr": 0.005, "rotation_lr": 0.001}
-# H100 SXM published peaks: HBM bytes/s, and f32 operations/s outside
-# the tensor cores. The published 67 TFLOP/s counts a fused multiply-add
-# as two operations, as the counts below count a product and a sum. The
-# kernels are built with -fmad=false (to round as their plain versions),
-# which halves the rate they can reach; that is a choice of the build,
-# not a floor of the function, so a bound takes the full rate.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
 # cycles of the spin kernel queued ahead of a timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
-# f32 operations per (pixel, instance) pair of the compositor: the power
-# (2 sub, 7 mul, 2 add) plus exp, the opacity product and the clamp for
-# every evaluated pair; 1 - alpha, T·(1 - alpha), alpha·T, the four
-# weighted channel sums (2 each) and the alpha sum for a composited one
-OPS_EVAL, OPS_COMP = 14, 12
-# the backward compositor (B4): the same 14 to re-evaluate a pair; for a
-# composited one c·g (5), 1 - alpha, alpha·T, the running sum (2),
-# dL/dalpha (4), T (1), dL/dG and dL/dpower (2), the three moments (3),
-# the gradient terms (19), and the nine adds of its share of the pixel
-# sums
-OPS_BWD_COMP = 47
 
 
 def garden_proxy_state_arrays(seed=0):
@@ -587,10 +556,9 @@ KERNELS = (
 
 def bound(nbytes, ops):
     """(the least time in ms for these bytes and f32 operations on the
-    H100, what bounds it)."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
-    return max(t_bytes, t_ops) * 1e3, \
-        "operations" if t_ops > t_bytes else "bytes"
+    H100 (gsbench.work.bound_s), what bounds it)."""
+    by_ops = ops / PEAK_F32_OPS_S > nbytes / PEAK_BYTES_S
+    return bound_s(nbytes, ops) * 1e3, "operations" if by_ops else "bytes"
 
 
 def step_kernels(seen, width, height, max_instances):
@@ -1987,124 +1955,6 @@ def production_phase():
                    report_rerenders=len(rec["report_rerenders"]),
                    resume_wall_ms=rec["resume_wall_ms"])
     print("production: " + json.dumps(summary))
-    return rec
-
-
-# --- 10. the A/B paths ----------------------------------------------------
-AB_PATHS = {"kernel": {}, "scatter": {"reduce": "scatter"},
-            "legacy": {"expand": "legacy"}}
-
-
-def ab_render(state, cam, gt, **paths):
-    """render of a training step's view through one A/B path, with every
-    stage kept, and the gradients of the training loss in the params and
-    the screen-space tap."""
-    xs = [x.detach().clone().requires_grad_(True) for x in state.params]
-    scales, quats, opac, shs = gmod.activate(gmod.GaussianParams(*xs))
-    tap = torch.zeros((state.capacity, 2), device=DEV, requires_grad=True)
-    seen = {}
-    out = render_ops.render(
-        xs[0], scales, quats, opac, shs, gmod.alive_mask(state), camera=cam,
-        width=WIDTH, height=HEIGHT, sh_degree=SH_DEGREE,
-        bg=torch.tensor(BG, device=DEV), low_pass=LOW_PASS,
-        max_instances=MAX_INSTANCES, xy_tap=tap, on_stage=stage_hook(seen),
-        **paths)
-    loss_ops.training_loss(out.render, gt)[0].backward()
-    return out, [x.grad for x in xs] + [tap.grad], seen
-
-
-def ab_phase(state, cam, gt):
-    """The A/B paths on the card at phase 4's step 0 (phase 10). Returns
-    its record."""
-    rec = {}
-    torch.cuda.synchronize()
-    reset_counts()
-    runs = {name: [ab_render(state, cam, gt, **kw) for _ in range(2)]
-            for name, kw in AB_PATHS.items()}
-    rec["launches"] = read_counts()
-    if rec["launches"]["preprocess_forward"] or \
-            rec["launches"]["preprocess_backward"]:
-        raise AssertionError(f"render.render from activated tensors ran "
-                             f"preprocess's kernels: {rec['launches']}")
-    for name, ((o1, g1, _), (o2, g2, _)) in runs.items():
-        if not (bitwise_equal(o1.render, o2.render) and all(
-                bitwise_equal(a, b) for a, b in zip(g1, g2))):
-            raise AssertionError(f"{name}: two runs differ")
-    print("ab: two runs of each path (B2, the scatter reduction, the "
-          "legacy expansion) are bitwise equal in image and gradients")
-    names = list(gmod.GaussianParams._fields) + ["tap"]
-    fused, g_kernel, seen = runs["kernel"][0]
-    _, g_scatter, seen_s = runs["scatter"][0]
-    legacy, g_legacy, seen_l = runs["legacy"][0]
-    if "reduce_B2" in seen_s or "reduce_B2" in seen_l or tuple(seen_l) != \
-            render_ops.LEGACY_STAGES + render_ops.BACKWARD_STAGES[:2]:
-        raise AssertionError("an A/B path ran kernel B2")
-
-    # the two sorts: one Binning
-    prep = seen_l["preprocess"]
-    grid_x, grid_y = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
-    with torch.no_grad():
-        binn = {s: binning_ops.bin_gaussians(prep, grid_x, grid_y,
-                                             MAX_INSTANCES, sort=s)
-                for s in binning_ops.SORTS}
-    if not all(torch.equal(a, b) for a, b in zip(*binn.values())):
-        raise AssertionError("bin_gaussians: the torch and the bitonic "
-                             "sort differ")
-    if not all(torch.equal(a, b) for a, b in zip(binn["torch"],
-                                                 seen_l["bin_gaussians"])):
-        raise AssertionError("bin_gaussians differs from the legacy path's")
-    # legacy and fused: one image, n_contrib and instance order
-    b = binn["torch"]
-    total = int(b.num_instances)
-    kept = min(total, MAX_INSTANCES)
-    keys = torch.sort(seen["expand_B1"][1]).values[:kept]
-    if not (torch.equal(keys >> 32, b.tile_id[:kept]) and torch.equal(
-            keys & 0xFFFFFFFF, b.rank[:kept]) and bitwise_equal(
-            seen["tile_sort_gather"], seen_l["pack_take"])):
-        raise AssertionError("legacy and fused: instance order differs")
-    for f in ("render", "depth", "alpha", "final_t", "n_contrib"):
-        if not bitwise_equal(getattr(legacy, f).float(),
-                             getattr(fused, f).float()):
-            raise AssertionError(f"legacy and fused: {f} differs")
-    if not all(bitwise_equal(a, b) for a, b in zip(g_legacy, g_scatter)):
-        raise AssertionError("legacy and fused (scatter): gradients differ")
-    # the scatter reduction against B2, at the gradient bar
-    rel = {}
-    for name, a, b in zip(names, g_scatter, g_kernel):
-        scale = float(b.abs().max())
-        rel[name] = float((a - b).abs().max()) / scale if scale else 0.0
-    if not all(v < 1e-4 for v in rel.values()):
-        raise AssertionError(f"scatter against B2: {rel}")
-    rec.update({
-        "instances": total, "kept": kept, "scatter_vs_b2_rel_err": rel,
-        "scatter_bitwise_b2": all(bitwise_equal(a, b) for a, b in
-                                  zip(g_scatter, g_kernel))})
-    print(f"ab: {total} instances; torch and bitonic sorts one Binning; "
-          f"legacy and fused one image, n_contrib and order; with the "
-          f"scatter reduction one set of gradients; scatter vs B2 relative "
-          f"error {json.dumps(rel)} (bitwise: {rec['scatter_bitwise_b2']})")
-    del runs, seen, seen_s, seen_l, fused, legacy
-    # times of one frame through each path, and of the two sorts
-    with torch.no_grad():
-        acts = gmod.activate(state.params)
-        alive = gmod.alive_mask(state)
-
-        def frame(**kw):
-            return render_ops.render(
-                state.params.xyz, *acts, alive, camera=cam, width=WIDTH,
-                height=HEIGHT, sh_degree=SH_DEGREE,
-                bg=torch.tensor(BG, device=DEV), low_pass=LOW_PASS,
-                max_instances=MAX_INSTANCES, **kw)
-
-        rec["frame_ms"] = {k: host_ms(lambda: frame(**kw), 5)[0]
-                           for k, kw in (("fused", {}),
-                                         ("legacy", {"expand": "legacy"}))}
-        rec["bin_gaussians_ms"] = {
-            s: host_ms(lambda: binning_ops.bin_gaussians(
-                prep, grid_x, grid_y, MAX_INSTANCES, sort=s), 5)[0]
-            for s in binning_ops.SORTS}
-    print("ab: " + json.dumps({k: rec[k] for k in (
-        "frame_ms", "bin_gaussians_ms", "launches")}))
     return rec
 
 
@@ -4112,8 +3962,6 @@ def main(out: Path | None = None):
         cli_rec = cli_phase(arrays, cli_dir)
         # --- 9. the 30k production run, cut to 1000 iterations -------------
         prod_rec = production_phase()
-        # --- 10. the A/B paths, at phase 4's step 0 --------------------------
-        ab_rec = ab_phase(state0, cams[0], gts[0])
         # --- 11. the sharded step and CLI, ranks sharing the card ----------
         del state0, opt0
         sharded_rec = sharded_phase(arrays, gts[0], auxes[0], first_step,
@@ -4150,7 +3998,6 @@ def main(out: Path | None = None):
         k["launches_cli"] = {"train": cli_rec["launches_train"][k["name"]],
                              "render": cli_rec["launches_render"][k["name"]]}
         k["launches_production"] = prod_rec["launches"][k["name"]]
-        k["launches_ab"] = ab_rec["launches"][k["name"]]
 
     # --- 18. the SSIM map's two kernels ---------------------------------
     torch.cuda.empty_cache()
@@ -4205,7 +4052,6 @@ def main(out: Path | None = None):
         "trainer": trainer_rec,
         "cli": cli_rec,
         "production": prod_rec,
-        "ab": ab_rec,
         "sharded": sharded_rec,
         "scale": scale_rec,
         "e2e": e2e_rec,

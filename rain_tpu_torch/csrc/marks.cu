@@ -26,8 +26,6 @@
   X(tile_ranges)      \
   X(composite_B3)     \
   X(assemble)         \
-  X(bin_gaussians)    \
-  X(pack_take)        \
   X(loss)             \
   X(loss_bwd)         \
   X(composite_bwd_B4) \

@@ -30,15 +30,6 @@ are summed to their owners by kernel B2 (ops.expand.reduce_instances) and
 go back to Gaussian order through the depth order. Both permutations are
 explicit scatters with unique indices, so nothing accumulates; the depth
 row takes no gradient, as in the reference (dgr/__init__.py:96).
-``sorted_pack(..., reduce="scatter")`` is rain_tpu's A/B path
-(``RAIN_TPU_REDUCE=scatter``): it bypasses B2 and sums each Gaussian's
-instance gradients in tile order (``owner_sum``).
-
-``bin_gaussians`` is rain_tpu's legacy instance list (``Binning``), which
-ops.render's ``expand="legacy"`` path gathers the pack with: the same
-(tile, depth-rank) order, built from integer streams, sorted by
-``torch.sort`` or by the bitonic network of ops.sort (``sort="bitonic"``,
-rain_tpu's ``RAIN_TPU_SORT=bitonic``).
 """
 
 from __future__ import annotations
@@ -48,21 +39,8 @@ from typing import NamedTuple
 import torch
 
 from rain_tpu_torch.ops import expand as expand_ops
-from rain_tpu_torch.ops import sort as sort_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.tile_render import StageHook, no_stage_hook
-
-REDUCTIONS = ("kernel", "scatter")   # sorted_pack's VJP: B2, or owner_sum
-SORTS = ("torch", "bitonic")         # bin_gaussians' instance sort
-# the packed (tile << rank_bits | rank) key of bin_gaussians stays below
-# this; past it the instances are sorted as (tile, rank) pairs
-PACKED_KEY_LIMIT = 2**31
-
-
-def _choose(name: str, value: str, allowed: tuple[str, ...]) -> str:
-    if value not in allowed:
-        raise ValueError(f"{name}={value!r} is not one of {allowed}")
-    return value
 
 
 class DepthOrdered(NamedTuple):
@@ -147,70 +125,27 @@ def sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,
     return (pack, total, total > max_instances), res
 
 
-def owner_sum(values: torch.Tensor, owner: torch.Tensor,
-              n: int) -> torch.Tensor:
-    """Per-owner sums of the columns of ``values`` [rows, M]: column g of
-    the [rows, n] result is the sum, from 0.0 and in column order, of the
-    columns whose ``owner`` is g; owners outside [0, n) are dropped.
-
-    The deterministic scatter-add of rain_tpu's gather transposes
-    (rain_tpu/ops/render.py:58-63, ops/binning.py:479-482), with no float
-    atomics on any device: a stable sort by owner makes each owner's
-    columns one contiguous run in column order, and the plain version of
-    kernel B2 (a loop over the position in the runs) sums the runs. Where
-    each owner's columns come in its generated order, as a Gaussian's
-    instances do in tile order, the sums are B2's bit for bit."""
-    srt = torch.sort(owner, stable=True)
-    g = torch.arange(n, dtype=srt.values.dtype, device=owner.device)
-    start = torch.searchsorted(srt.values, g)
-    count = torch.searchsorted(srt.values, g, right=True) - start
-    return expand_ops.reduce_instances_torch(
-        values[:, srt.indices], start, count.to(torch.int32))
-
-
-def sorted_owner(res: PackResiduals) -> torch.Tensor:
-    """[M] int64: the Gaussian of each tile-sorted instance, n for padding
-    (rain_tpu's ``gauss_sorted``): perm gives its generated position p,
-    and the owner of p is the depth rank r with exc[r] <= p < offs[r]."""
-    n = res.order.shape[0]
-    offs = res.exc + res.tiles
-    total = offs[-1] if n else offs.new_zeros(())
-    rank = torch.clamp(torch.searchsorted(offs, res.perm, right=True),
-                       max=max(n - 1, 0))
-    kept = res.perm < torch.clamp(total, max=res.perm.shape[0])
-    return torch.where(kept, res.order[rank] if n else rank,
-                       torch.full_like(rank, n))
-
-
 def sorted_pack_bwd(res: PackResiduals, d_pack: torch.Tensor,
-                    on_stage: StageHook = no_stage_hook,
-                    reduce: str = "kernel") -> torch.Tensor:
+                    on_stage: StageHook = no_stage_hook) -> torch.Tensor:
     """The VJP of ``sorted_pack`` in its table: [16, M] pack cotangent →
-    [10, N] table cotangent (zero depth row).
+    [10, N] table cotangent (zero depth row), in the pack cotangent's
+    dtype.
 
     ``on_stage("reduce_B2", (d_rank, exc, tiles, d_depth))`` reports kernel
-    B2's inputs and output. ``reduce="scatter"`` sums each Gaussian's
-    instance gradients in tile order instead (``owner_sum``), without B2,
-    and reports nothing.
+    B2's inputs and output.
     """
     m = d_pack.shape[1]
     n = res.order.shape[0]
-    if _choose("reduce", reduce, REDUCTIONS) == "scatter":
-        d_table = torch.zeros((tile_render.KERNEL_ROWS, n),
-                              dtype=torch.float32, device=d_pack.device)
-        d_table[:tile_render.GRAD_ROWS] = owner_sum(
-            d_pack[:tile_render.GRAD_ROWS], sorted_owner(res), n)
-        return d_table
     # tile order → rank (generated) order: d_rank[:, perm[j]] = d_pack[:, j]
     # (B2 reads only the columns of kept instances, so the padding columns
     # past them need no masking)
-    d_rank = torch.empty((tile_render.GRAD_ROWS, m), dtype=torch.float32,
+    d_rank = torch.empty((tile_render.GRAD_ROWS, m), dtype=d_pack.dtype,
                          device=d_pack.device)
     d_rank[:, res.perm] = d_pack[:tile_render.GRAD_ROWS]
     d_depth = expand_ops.reduce_instances(d_rank, res.exc, res.tiles)
     on_stage("reduce_B2", (d_rank, res.exc, res.tiles, d_depth))
     # depth order → Gaussian order: d_table[:, order[r]] = d_depth[:, r]
-    d_table = torch.zeros((tile_render.KERNEL_ROWS, n), dtype=torch.float32,
+    d_table = torch.zeros((tile_render.KERNEL_ROWS, n), dtype=d_pack.dtype,
                           device=d_pack.device)
     d_table[:tile_render.GRAD_ROWS, res.order] = d_depth
     return d_table
@@ -221,13 +156,11 @@ class _SortedPack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table10, tiles_touched, rect_min, rect_wh, tile_offset,
-                grid_x, n_tiles, max_instances, need_depth, on_stage,
-                reduce):
+                grid_x, n_tiles, max_instances, need_depth, on_stage):
         (pack, total, overflow), res = sorted_pack_fwd(
             table10, tiles_touched, rect_min, rect_wh, tile_offset, grid_x,
             n_tiles, max_instances, need_depth, on_stage)
-        ctx.res, ctx.reduce = res, reduce
-        ctx.on_stage = on_stage
+        ctx.res, ctx.on_stage = res, on_stage
         ctx.mark_non_differentiable(total, overflow)
         return pack, total, overflow
 
@@ -236,16 +169,14 @@ class _SortedPack(torch.autograd.Function):
         # let go of the hook: a caller that keeps the pack would otherwise
         # keep, through the pack's graph, the hook and all it holds
         on_stage, ctx.on_stage = ctx.on_stage, None
-        d_table = sorted_pack_bwd(ctx.res, d_pack.contiguous(), on_stage,
-                                  ctx.reduce)
-        return (d_table,) + (None,) * 10
+        d_table = sorted_pack_bwd(ctx.res, d_pack.contiguous(), on_stage)
+        return (d_table,) + (None,) * 9
 
 
 def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
                 tile_offset: int, grid_x: int, n_tiles: int,
                 max_instances: int, need_depth: bool = True,
-                on_stage: StageHook = no_stage_hook, *,
-                reduce: str = "kernel"):
+                on_stage: StageHook = no_stage_hook):
     """Tile-sorted [16, M] instance pack for ops.tile_render.
 
     Args:
@@ -261,16 +192,13 @@ def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
       on_stage: called with each forward stage's result (see
         ``sorted_pack_fwd``) and, in the backward, with B2's
         (see ``sorted_pack_bwd``).
-      reduce: the VJP's reduction, "kernel" (B2, the main path) or
-        "scatter" (``owner_sum`` in tile order); ValueError otherwise.
 
     Returns (pack [16, M] f32, num_instances (0-d int64, may exceed M),
     overflow (0-d bool)).
     """
     return _SortedPack.apply(table10, tiles_touched, rect_min, rect_wh,
                              tile_offset, grid_x, n_tiles, max_instances,
-                             need_depth, on_stage,
-                             _choose("reduce", reduce, REDUCTIONS))
+                             need_depth, on_stage)
 
 
 def tile_ranges(rect_min, rect_wh, visible, grid_x: int, n_tiles: int,
@@ -305,91 +233,3 @@ def tile_ranges(rect_min, rect_wh, visible, grid_x: int, n_tiles: int,
     tile_start = torch.clamp(ends_all - counts,
                              max=max_instances).to(torch.int32)
     return tile_start, tile_end
-
-
-class Binning(NamedTuple):
-    """The legacy instance list (rain_tpu/ops/binning.py:58-69)."""
-
-    order: torch.Tensor         # [N] int64 depth rank → Gaussian
-    rank: torch.Tensor          # [M] int64 depth rank per sorted instance
-    #   (N for padding: the dump column of a depth-ordered table)
-    gauss_idx: torch.Tensor     # [M] int64 Gaussian per instance (N: pad)
-    tile_id: torch.Tensor       # [M] int64 sorted tile ids (n_tiles: pad)
-    tile_start: torch.Tensor    # [n_tiles] int32 range starts
-    tile_end: torch.Tensor      # [n_tiles] int32 range ends
-    num_instances: torch.Tensor  # 0-d int64 (true count, may exceed M)
-    overflow: torch.Tensor      # 0-d bool
-
-
-def bin_gaussians(prep, grid_x: int, grid_y: int, max_instances: int, *,
-                  sort: str = "torch") -> Binning:
-    """The sorted instance list of the tile grid, rain_tpu's
-    ``bin_gaussians`` (rain_tpu/ops/binning.py:72-172; its band offset
-    waits for the multi-GPU slice, as ``render_tiles``' does).
-
-    The Gaussians are ordered by depth (stable, culled ones last); each
-    instance i < min(total, M) gets its owner's depth rank (the number of
-    inclusive tile offsets <= i) and its tile (the owner's rect in
-    row-major order); the instances are sorted by (tile, rank). While
-    (n_tiles + 1) << rank_bits fits in 31 bits the pair is one packed key
-    (unique, so any sort gives the stable order); past that the pairs are
-    sorted lexicographically. ``sort`` is "torch" (``torch.sort``) or
-    "bitonic" (ops.sort); both give the same Binning bit for bit.
-    rain_tpu's optimization barriers are XLA's and have no counterpart.
-
-    Args:
-      prep: ops.projection.Preprocessed.
-      grid_x, grid_y: the tile grid; max_instances: the capacity M.
-    """
-    _choose("sort", sort, SORTS)
-    dev = prep.depth.device
-    n = prep.depth.shape[0]
-    n_tiles = grid_x * grid_y
-    m = max_instances
-
-    visible = prep.tiles_touched > 0
-    depth_key = torch.where(visible, prep.depth,
-                            torch.full_like(prep.depth, float("inf")))
-    order = torch.sort(depth_key, stable=True).indices
-    tiles_o = prep.tiles_touched[order].to(torch.int64)
-    offs = torch.cumsum(tiles_o, 0)
-    total = offs[-1]
-    exc = offs - tiles_o
-    w_d = torch.clamp(prep.rect_wh[order, 0], min=1).to(torch.int64)
-    base_d = (prep.rect_min[order, 1] * grid_x +
-              prep.rect_min[order, 0]).to(torch.int64)
-
-    i = torch.arange(m, dtype=torch.int64, device=dev)
-    rank = torch.clamp(torch.searchsorted(offs, i, right=True), max=n - 1)
-    local = i - exc[rank]
-    w_i = w_d[rank]
-    dy = torch.div(local, w_i, rounding_mode="floor")
-    tile = base_d[rank] + dy * grid_x + (local - dy * w_i)
-    valid = i < torch.clamp(total, max=m)
-    tile = torch.where(valid, tile, torch.full_like(tile, n_tiles))
-    rank = torch.where(valid, rank, torch.zeros_like(rank))
-
-    rank_bits = max(int(n - 1).bit_length(), 1)
-    if (n_tiles + 1) << rank_bits <= PACKED_KEY_LIMIT:
-        key = (tile << rank_bits) | rank
-        key = sort_ops.bitonic_sort(key) if sort == "bitonic" else \
-            torch.sort(key).values
-        tile_sorted, rank_sorted = key >> rank_bits, key & ((1 << rank_bits)
-                                                           - 1)
-    elif sort == "bitonic":
-        tile_sorted, rank_sorted = sort_ops.bitonic_sort_pairs(tile, rank)
-    else:
-        # a stable sort by tile keeps each tile's instances in generated
-        # order, which is ascending rank
-        srt = torch.sort(tile, stable=True)
-        tile_sorted, rank_sorted = srt.values, rank[srt.indices]
-
-    rank_sorted = torch.where(tile_sorted < n_tiles, rank_sorted,
-                              torch.full_like(rank_sorted, n))
-    order_pad = torch.cat([order, order.new_full((1,), n)])
-    tile_start, tile_end = tile_ranges(prep.rect_min, prep.rect_wh, visible,
-                                       grid_x, n_tiles, 0, m)
-    return Binning(order=order, rank=rank_sorted,
-                   gauss_idx=order_pad[rank_sorted], tile_id=tile_sorted,
-                   tile_start=tile_start, tile_end=tile_end,
-                   num_instances=total, overflow=total > m)

@@ -118,14 +118,15 @@ def expand_instances_torch(table: torch.Tensor, tiles: torch.Tensor,
                            max_instances: int
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of kernel B1 (same contract as
-    ``expand_instances``), on any device: a searchsorted over the
-    offsets, then a gather."""
+    ``expand_instances``), on any device and in the table's dtype: a
+    searchsorted over the offsets, then a gather."""
     dev = table.device
     n = table.shape[1]
     i = torch.arange(max_instances, dtype=torch.int64, device=dev)
     pad_key = torch.full_like(i, int(n_tiles) << 32)
     if n == 0:
-        return torch.zeros((ROWS, max_instances), device=dev), pad_key
+        return torch.zeros((ROWS, max_instances), dtype=table.dtype,
+                           device=dev), pad_key
     valid = i < offs[-1]
     g = torch.clamp(torch.searchsorted(offs, i, right=True), max=n - 1)
     local = i - (offs[g] - tiles[g])
@@ -188,11 +189,11 @@ reduce_instances.launches = 0
 def reduce_instances_torch(d_rank: torch.Tensor, exc: torch.Tensor,
                            tiles: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of kernel B2 (same contract as
-    ``reduce_instances``), on any device: a loop over the position k in
-    each segment, adding in the kernel's order, so the two agree bit for
-    bit."""
+    ``reduce_instances``), on any device and in d_rank's dtype: a loop
+    over the position k in each segment, adding in the kernel's order, so
+    the two agree bit for bit."""
     rows, m = d_rank.shape
-    out = torch.zeros((rows, exc.shape[0]), dtype=torch.float32,
+    out = torch.zeros((rows, exc.shape[0]), dtype=d_rank.dtype,
                       device=d_rank.device)
     if m == 0 or exc.shape[0] == 0:
         return out

@@ -16,11 +16,11 @@ One step on each rank:
             render streams in two collectives, the 7 geometry rows, then
             the 3 SH colours (``distributed.gather_shards``), and the rect
             ints; clip each rect to the band's rows; bin, sort and
-            composite the band with the tile offset (band·rows − HALO)·
-            grid_x, which is negative on band 0; the band's L1 and SSIM
-            sums over its interior pixels, with pixels outside the image
-            zeroed, so that the SSIM blur's zero padding is the one of the
-            whole image.
+            composite the band (ops.render.render_tiles) with the tile
+            offset (band·rows − HALO)·grid_x, which is negative on band
+            0; the band's L1 and SSIM sums over its interior pixels,
+            with pixels outside the image zeroed, so that the SSIM blur's
+            zero padding is the one of the whole image.
   backward: the gathers' transpose sums every band's stream cotangents
             onto the owning shard (a reduce-scatter), so each shard's
             gradients are the whole image's; no gradient all-reduce exists.
@@ -59,7 +59,6 @@ from rain_tpu_torch.ops import losses as loss_ops
 from rain_tpu_torch.ops import projection as proj_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import sh as sh_ops
-from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.ops.projection import TILE
 from rain_tpu_torch.parallel import distributed
 from rain_tpu_torch.train import step as step_mod
@@ -278,20 +277,14 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
             rect_wh = torch.stack([rect[:, 2], h], dim=1)
             tiles = rect[:, 2] * h
 
-            pack, num_inst, ovf = binning_ops.sorted_pack(
-                table10, tiles, rect_min, rect_wh, toff, grid_x, n_tiles, m,
-                False, on_stage)   # the loss reads no depth
-            tile_start, tile_end = binning_ops.tile_ranges(
-                rect_min, rect_wh, tiles > 0, grid_x, n_tiles, toff, m)
-            on_stage("tile_ranges", (tile_start, tile_end))
-            band = tile_render.composite(pack, tile_start, tile_end, toff,
-                                         grid_x, on_stage)
-            on_stage("composite_B3", band)
+            band, num_inst, ovf = render_ops.render_tiles(
+                table10, tiles, rect_min, rect_wh, tile_offset=toff,
+                grid_x=grid_x, n_tiles=n_tiles, max_instances=m,
+                need_depth=False,   # the loss reads no depth
+                on_stage=on_stage)
             img = render_ops.assemble_image(band, grid_x, n_rows,
                                             n_rows * TILE, grid_x * TILE)
-            color = (img[..., 0:3] +
-                     img[..., tile_render.CH_T:tile_render.CH_T + 1] *
-                     bg[None, None, :]).permute(2, 0, 1)
+            color = render_ops.over_background(img, bg)
             l1_sum, ssim_sum = _band_loss_sums(
                 color, gt, band_ty0, rows_per_band, width=width,
                 height=height)

@@ -13,7 +13,7 @@ Adam.
 
 ``STAGES`` are every stage a graph can mark, in the order of
 ``csrc/marks.cu``'s list: "begin" (a graph's first node), the render's
-stages (ops.render.STAGES, LEGACY_STAGES), the loss, the backward's
+stages (ops.render.STAGES), the loss, the backward's
 (ops.render.BACKWARD_STAGES), the training step's and the end marks of
 the densify round's and the opacity reset's graphs.
 """
@@ -30,7 +30,7 @@ from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.train import step as step_mod
 
 STAGES = tuple(dict.fromkeys(
-    ("begin",) + render_ops.STAGES + render_ops.LEGACY_STAGES +
+    ("begin",) + render_ops.STAGES +
     step_mod.TRAIN_STAGES[:1] + render_ops.BACKWARD_STAGES +
     step_mod.TRAIN_STAGES[1:] + ("round", "reset")))
 # slots of one graph's buffer: a training graph marks 15 stages

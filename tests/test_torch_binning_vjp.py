@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from rain_tpu.ops import binning as jbin
 from rain_tpu_torch.ops import binning as tbin
+from rain_tpu_torch.ops import expand as texp
 from rain_tpu_torch.ops import tile_render as ttr
 from tests.test_torch_expand import GRID_X, N_TILES, _prep, _t, _table10
 
@@ -56,6 +57,37 @@ def test_sorted_pack_vjp_matches_jax(max_instances, need_depth):
     # culled Gaussians own no instances and get no gradient
     culled = np.asarray(prep.tiles_touched) == 0
     assert culled.any() and np.all(got[:, culled] == 0.0)
+
+
+@pytest.mark.parametrize("max_instances,need_depth", [
+    (2048, False),
+    (256, True),     # overflow
+])
+def test_sorted_pack_vjp_keeps_f64(max_instances, need_depth, monkeypatch):
+    """With the plain versions of B1 and B2 behind their wrappers (which
+    take f32 only), an f64 table gives an f64 pack, the f32 pack converted,
+    and an f64 table gradient within 1e-6 of the f32 one's largest."""
+    prep = _prep()
+    ct = np.random.default_rng(3).standard_normal(
+        (16, max_instances)).astype(np.float32)
+    args = (_t(prep.tiles_touched), _t(prep.rect_min), _t(prep.rect_wh), 0,
+            GRID_X, N_TILES, max_instances, need_depth)
+
+    def run(dtype):
+        t10 = _t(_table10(prep)).to(dtype).requires_grad_(True)
+        pack, _, _ = tbin.sorted_pack(t10, *args)
+        pack.backward(torch.from_numpy(ct).to(dtype))
+        return pack.detach(), t10.grad
+
+    pack, grad = run(torch.float32)
+    for name in ("expand_instances", "reduce_instances"):
+        monkeypatch.setattr(texp, name, getattr(texp, name + "_torch"))
+    pack64, grad64 = run(torch.float64)
+    assert pack64.dtype == grad64.dtype == torch.float64
+    assert torch.equal(pack64, pack.double())
+    scale = float(grad.abs().max())
+    assert scale > 0.0
+    assert float((grad64 - grad.double()).abs().max()) <= 1e-6 * scale
 
 
 def test_sorted_pack_bwd_reports_b2_and_inverts_both_permutations():

@@ -456,50 +456,6 @@ def test_train_and_render_cli_on_card_match_cpu(cuda, tmp_path):
         assert np.abs(a - b).max() <= 1, name
 
 
-def _ab_grads(state, device, **paths):
-    from rain_tpu_torch.ops import render as render_ops
-    xs = [x.detach().clone().requires_grad_(True) for x in state.params]
-    scales, quats, opac, shs = gmod.activate(gmod.GaussianParams(*xs))
-    out = render_ops.render(
-        xs[0], scales, quats, opac, shs, gmod.alive_mask(state),
-        camera=_camera(device), width=W, height=H, sh_degree=3,
-        bg=torch.zeros(3, device=device), low_pass=0.3, max_instances=M,
-        **paths)
-    out.render.square().sum().backward()
-    return out, [x.grad for x in xs]
-
-
-def test_ab_paths_on_card_match_main_path_and_cpu(cuda):
-    """The legacy expansion and the scatter reduction on the card: one
-    image with the fused path, one set of gradients with each other, the
-    same bits on a second run, and the CPU's values."""
-    state = _state(cuda)
-    legacy, g_legacy = _ab_grads(state, cuda, expand="legacy")
-    fused, g_scatter = _ab_grads(state, cuda, reduce="scatter")
-    _, g_kernel = _ab_grads(state, cuda)
-    assert torch.equal(legacy.render, fused.render)
-    assert torch.equal(legacy.n_contrib, fused.n_contrib)
-    for a, b, c, d in zip(g_legacy, g_scatter, g_kernel,
-                          _ab_grads(state, cuda, expand="legacy")[1]):
-        assert torch.equal(a, b) and torch.equal(a, d)
-        assert (a - c).abs().max() <= 1e-4 * c.abs().max()
-    _, g_cpu = _ab_grads(_state("cpu"), torch.device("cpu"),
-                         expand="legacy")
-    for a, b in zip(g_legacy, g_cpu):
-        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
-
-
-def test_bin_gaussians_sorts_agree_on_card(cuda):
-    from rain_tpu_torch.ops import binning as binning_ops
-    seen = {}
-    step.eval_render(_state(cuda), _camera(cuda), torch.zeros(3, device=cuda),
-                     0.3, width=W, height=H, sh_degree=3, max_instances=M,
-                     on_stage=seen.__setitem__)
-    a, b = (binning_ops.bin_gaussians(seen["preprocess"], GX, GY, M, sort=s)
-            for s in binning_ops.SORTS)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-
-
 def test_entry_on_card_matches_cpu(cuda):
     from rain_tpu_torch import entry as entry_mod
     fn, args = entry_mod.entry()

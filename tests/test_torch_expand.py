@@ -267,6 +267,21 @@ def test_b1_block_schedule_follows_the_contract(case):
     _assert_bitwise(*_block_schedule(*arrays, **kw), *_contract(*arrays, **kw))
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_plain_expansion_keeps_f64(case):
+    """The plain version copies in its table's dtype: from an f64 table
+    its columns are the f32 run's converted to f64, bit for bit, with the
+    same keys (the f64 oracles of tests/test_torch_grad_f64.py and
+    tests/torch_gt_images.py rely on it)."""
+    (table, *rest), kw = expand_case(case, N_CASE, M_CASE)
+    cols, keys = texp.expand_instances_torch(table, *rest, **kw)
+    cols64, keys64 = texp.expand_instances_torch(table.double(), *rest, **kw)
+    assert cols64.dtype == torch.float64
+    np.testing.assert_array_equal(keys64.numpy(), keys.numpy())
+    np.testing.assert_array_equal(cols64.numpy().view(np.int64),
+                                  cols.double().numpy().view(np.int64))
+
+
 @pytest.mark.parametrize("n", [1, 2, 33, 1025, 262_144, 2**21 + 3])
 def test_warp_owner_search_takes_log32_rounds(n):
     rng = np.random.default_rng(n)

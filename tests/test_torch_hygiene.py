@@ -63,7 +63,7 @@ WALKED = ("rain_tpu_torch.train.step", "rain_tpu_torch.data.images",
           "rain_tpu_torch.scripts.train", "rain_tpu_torch.scripts.render",
           "rain_tpu_torch.scripts.metrics",
           "rain_tpu_torch.scripts.production_30k", "rain_tpu_torch.entry",
-          "rain_tpu_torch.ops.sort", "rain_tpu_torch.parallel.sharding",
+          "rain_tpu_torch.parallel.sharding",
           "rain_tpu_torch.parallel.distributed",
           "rain_tpu_torch.parallel.launch", "rain_tpu_torch.parallel.scaling",
           "rain_tpu_torch.scripts.probe_scale",

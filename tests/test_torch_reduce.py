@@ -188,6 +188,20 @@ def test_reduction_follows_the_contract(case):
                                   want.view(np.int32))
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_plain_reduction_keeps_f64(case):
+    """The plain version sums in its input's dtype: f64 columns give the
+    contract's f64 sums bit for bit (the f64 oracles of
+    tests/test_torch_grad_f64.py and tests/torch_gt_images.py rely on
+    it)."""
+    d, exc, tiles = reduce_case(case, N_CASE, M_CASE)
+    got = texp.reduce_instances_torch(d.double(), exc, tiles)
+    assert got.dtype == torch.float64
+    want = contract(d.numpy().astype(np.float64), exc.numpy(), tiles.numpy())
+    np.testing.assert_array_equal(got.numpy().view(np.int64),
+                                  want.view(np.int64))
+
+
 @pytest.mark.parametrize("chunk,tail", [(1024, 1024), (64, 32)])
 @pytest.mark.parametrize("case", CASES)
 def test_b2_block_schedule_follows_the_contract(case, chunk, tail):

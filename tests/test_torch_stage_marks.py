@@ -113,7 +113,7 @@ def test_marks_cu_lists_the_python_stages():
 def test_every_reported_stage_has_a_mark():
     graphs = (("begin",) + render_ops.STAGES + ("loss",) +
               render_ops.BACKWARD_STAGES + step_mod.TRAIN_STAGES[1:] +
-              render_ops.LEGACY_STAGES + ("round", "reset"))
+              ("round", "reset"))
     assert set(graphs) == set(marks.STAGES)
     assert len(set(marks.STAGES)) == len(marks.STAGES)
     assert marks.STAGES[0] == "begin"

@@ -11,9 +11,10 @@ this scene), while n_contrib, which counts to the last contributor,
 stays equal. rain_tpu's quadratic-basis power and the port's direct
 form round such alphas apart, and so do the CPU's and the card's expf.
 At every value past the tolerances an f64 render of the same scene
-(the port's plain compositor and legacy expansion, whose sums take any
-dtype) settles it: one of the two f32 images must lie within the
-tolerances of it. Such values may be at most ``MAX_FLIP_SHARE`` of all.
+(the port's main path with the plain versions of kernels B1-B4, which
+keep their input's dtype) settles it: one of the two f32 images must lie
+within the tolerances of it. Such values may be at most
+``MAX_FLIP_SHARE`` of all.
 No jax.
 """
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from rain_tpu_torch.model import gaussians as gmod
+from rain_tpu_torch.ops import expand as expand_ops
 from rain_tpu_torch.ops import render as render_ops
 from rain_tpu_torch.ops import tile_render
 from rain_tpu_torch.scripts import e2e_long
@@ -33,16 +35,25 @@ RTOL, ATOL = 1e-4, 3e-5
 MAX_FLIP_SHARE = 1e-4
 
 
+# (module, wrapper) of kernels B1-B4, whose wrappers take f32 only
+_KERNELS = ((expand_ops, "expand_instances"),
+            (expand_ops, "reduce_instances"),
+            (tile_render, "composite_forward"),
+            (tile_render, "composite_backward"))
+
+
 @contextlib.contextmanager
-def _plain_compositor():
-    """The compositor's plain version behind its wrapper, which takes f32
-    only."""
-    saved = tile_render.composite_forward
-    tile_render.composite_forward = tile_render.composite_forward_torch
+def plain_kernels():
+    """The plain versions of kernels B1-B4 behind their wrappers, so that
+    the main path runs in any dtype."""
+    saved = [getattr(mod, name) for mod, name in _KERNELS]
+    for mod, name in _KERNELS:
+        setattr(mod, name, getattr(mod, name + "_torch"))
     try:
         yield
     finally:
-        tile_render.composite_forward = saved
+        for (mod, name), f in zip(_KERNELS, saved):
+            setattr(mod, name, f)
 
 
 class F64Views:
@@ -61,12 +72,12 @@ class F64Views:
     def __call__(self, i) -> np.ndarray:
         cam = e2e_long.gt_camera(i)
         inputs = {k: v.double() for k, v in cam.render_inputs("cpu").items()}
-        with _plain_compositor():
+        with plain_kernels():
             out = render_ops.render(
                 self.xyz, *self.act, self.alive, camera=inputs,
                 width=cam.width, height=cam.height, sh_degree=3,
                 bg=torch.zeros(3, dtype=torch.float64),
-                max_instances=e2e_long.GT_MAX_INSTANCES, expand="legacy")
+                max_instances=e2e_long.GT_MAX_INSTANCES)
         assert out.render.dtype == torch.float64
         return torch.clamp(out.render, 0, 1).numpy()
 

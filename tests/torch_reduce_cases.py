@@ -79,15 +79,15 @@ def reduce_case(name: str, n: int, m: int, seed: int = 0):
 def contract(d: np.ndarray, exc: np.ndarray, tiles: np.ndarray) -> np.ndarray:
     """The reduction as its contract states it, a loop over segments:
     column g sums d's columns [exc[g], min(exc[g] + tiles[g], M)) left to
-    right from +0.0, in float32."""
+    right from +0.0, in d's dtype (float32 for the kernel's inputs)."""
     rows, m = d.shape
-    out = np.zeros((rows, exc.shape[0]), np.float32)
+    out = np.zeros((rows, exc.shape[0]), d.dtype)
     for g in range(exc.shape[0]):
         b, e = int(exc[g]), min(int(exc[g]) + int(tiles[g]), m)
         if e > b:
-            # np.cumsum adds in order in float32; the leading zero makes
+            # np.cumsum adds in order in d's dtype; the leading zero makes
             # the first add 0.0 + d, as the contract's (-0.0 becomes +0.0)
-            seq = np.concatenate([np.zeros((rows, 1), np.float32),
+            seq = np.concatenate([np.zeros((rows, 1), d.dtype),
                                   d[:, b:e]], axis=1)
-            out[:, g] = np.cumsum(seq, axis=1, dtype=np.float32)[:, -1]
+            out[:, g] = np.cumsum(seq, axis=1, dtype=d.dtype)[:, -1]
     return out
