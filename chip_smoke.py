@@ -47,8 +47,9 @@ numbers); any failure exits non-zero before the result lines:
 4. The training main path, bench.py's 262k train tier: the scene is
    perturbed (seeded xyz noise, an opacity and a colour shift) and
    train_step takes 5 steps, one per pose, with the lrs of bench.py:79-80.
-   The eight launch counters (B1-B4, preprocess's forward and backward
-   kernels, the SSIM map's) are set to 0 just before and read just after:
+   The nine launch counters (B1-B4, preprocess's forward and backward
+   kernels, the SSIM map's, Adam's) are set to 0 just before and read just
+   after:
    each kernel launched once per step. Loss and params are finite, no
    step overflows, and the loss at pose 0 after the steps is below step
    0's. Step 0 taken again from the same state gives the same params, Adam
@@ -353,13 +354,22 @@ numbers); any failure exits non-zero before the result lines:
    bucket the masked training loss forward and backward; the resident
    blocks per SM. Phase 4 also counts one launch of each per step.
    Printed as one {"ssim": ...} line.
+19. Adam's kernel AD (model.adam: csrc/adam.cu) at 262,144, 524,288 and
+   4,194,304 rows of seeded parameters, gradients and moments at step
+   1,000, a quarter of the rows dead: the new parameters and moments
+   against update_plain on the card bit for bit, the dead rows
+   unchanged, one launch a call. Recorded: the kernel alone
+   (update_kernel into outputs made beforehand), the whole update and
+   update_plain, in ms, beside the bytes bound (28 a parameter at 3.35
+   TB/s) and the kernel's share of it; the resident blocks per SM. Phase
+   4 also counts one launch per step. Printed as one {"adam": ...} line.
 
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
-(each kernel's launches in phase 4, and but for the SSIM map's two in
-phases 8, 9, 10, 11, 12, 13 and 15; B1-B4's ms and bound ms at phase
+(each kernel's launches in phase 4, and but for the SSIM map's two and
+Adam's in phases 8, 9, 10, 11, 12, 13 and 15; B1-B4's ms and bound ms at phase
 12's tiers, preprocess's kernels' at phase 17's 4m scene, the SSIM
-map's at phase 18's 1297x840; the rounds of phases 7, 9, 12, 13 and
-16 launch none of them) and, last,
+map's at phase 18's 1297x840, Adam's at phase 19's 4,194,304 rows; the
+rounds of phases 7, 9, 12, 13 and 16 launch none of them) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -3682,6 +3692,100 @@ def ssim_phase():
     return rec
 
 
+# the Adam phase: the 262k cells' rows, the Trainer cell's capacity and
+# the 4m cell's rows (gsbench/configs/)
+ADAM_ROWS = (262_144, 524_288, 4_194_304)
+ADAM_SEED = 4195000019
+ADAM_LEAF_SHAPES = ((3,), (1, 3), (15, 3), (3,), (4,), (1,))
+# bytes a parameter: p, g, m and v read, p', m' and v' written (f32);
+# f32 operations a parameter: 3 for m', 4 for v', the two bias
+# divisions, then the square root, eps, lr, the division and the step
+ADAM_BYTES, ADAM_OPS = 7 * 4, 14
+
+
+def adam_inputs(rows, gen):
+    """Seeded parameters, gradients and moments of ``rows`` rows on the
+    card at step count 999, the last quarter of the rows dead (zero
+    gradients and moments): (params, grads, AdamState, alive)."""
+    alive = rows - rows // 4
+
+    def leaves(scale, square=False, dead=True):
+        out = []
+        for shape in ADAM_LEAF_SHAPES:
+            x = torch.randn((rows,) + shape, generator=gen, device=DEV) * scale
+            if square:
+                x = x * x
+            if dead:
+                x[alive:] = 0.0
+            out.append(x)
+        return gmod.GaussianParams(*out)
+
+    opt = adam_mod.AdamState(leaves(0.1), leaves(0.1, square=True),
+                             torch.full((), 999, dtype=torch.int32,
+                                        device=DEV))
+    return leaves(1.0, dead=False), leaves(1.0), opt, alive
+
+
+def adam_phase():
+    """Adam's kernel AD (model/adam.py, csrc/adam.cu) against
+    update_plain and timed (phase 19): at each of ``ADAM_ROWS`` the new
+    parameters and moments bit for bit, the dead rows unchanged, one
+    launch a call; then the kernel alone (``update_kernel`` into outputs
+    made beforehand), the whole ``update`` (the bias corrections and the
+    allocations too) and ``update_plain``, each against the bytes bound.
+    Returns {rows: record} and the resident blocks per SM."""
+    blocks = ctypes.c_int(0)
+    _build.launch(_build.kernel("adam", "rain_adam_occupancy",
+                                (ctypes.c_void_p,)), DEV,
+                  ctypes.addressof(blocks))
+    rec = {"blocks_per_sm": blocks.value}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(ADAM_SEED)
+    lrs = step.learning_rates(OPT_LEAVES, torch.full((), XYZ_LR, device=DEV),
+                              DEV)
+    for rows in ADAM_ROWS:
+        params, grads, opt, alive = adam_inputs(rows, gen)
+        n0 = adam_mod.update.launches
+        new_p, new_opt = adam_mod.update(params, grads, opt, lrs)
+        if adam_mod.update.launches != n0 + 1:
+            raise AssertionError("update did not count one launch")
+        want_p, want_opt = adam_mod.update_plain(params, grads, opt, lrs)
+        for what, got, want in (("parameters", new_p, want_p),
+                                ("first moments", new_opt.mu, want_opt.mu),
+                                ("second moments", new_opt.nu,
+                                 want_opt.nu)):
+            if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"AD's {what} differ from "
+                                     f"update_plain's at {rows} rows")
+        if not all(bitwise_equal(a[alive:], b[alive:])
+                   for a, b in zip(new_p, params)):
+            raise AssertionError(f"AD moved dead rows at {rows} rows")
+        del want_p, want_opt
+        b1c = 1.0 - adam_mod.BETA1 ** new_opt.step.to(torch.float32)
+        b2c = 1.0 - adam_mod.BETA2 ** new_opt.step.to(torch.float32)
+        n_par = sum(p.numel() for p in params)
+        r = {"parameters": n_par,
+             "kernel_ms": device_ms(lambda: adam_mod.update_kernel(
+                 params, grads, opt, list(lrs), b1c, b2c, new_p, new_opt.mu,
+                 new_opt.nu)),
+             "update_ms": device_ms(
+                 lambda: adam_mod.update(params, grads, opt, lrs)),
+             "plain_ms": device_ms(
+                 lambda: adam_mod.update_plain(params, grads, opt, lrs),
+                 reps=5),
+             "bound_ms": bound(n_par * ADAM_BYTES, n_par * ADAM_OPS)[0]}
+        r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+        rec[str(rows)] = r
+        print(f"Adam at {rows} rows ({n_par} parameters): AD "
+              f"{r['kernel_ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+              f"{100 * r['roofline_share']:.1f} % of 3.35 TB/s), update "
+              f"{r['update_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; bit "
+              f"for bit, dead rows unchanged")
+        del params, grads, opt, new_p, new_opt
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3709,9 +3813,9 @@ def main(out: Path | None = None):
                       "preprocess_bwd")}
     print(f"resident blocks per SM: {blocks_per_sm}")
     if sorted(p.stem for p in _build.CSRC.glob("*.cu")) != [
-            "expand", "marks", "preprocess_bwd", "preprocess_fwd", "reduce",
-            "ssim", "tile_render_bwd", "tile_render_fwd"]:
-        raise AssertionError("expected the eight kernels' sources and the "
+            "adam", "expand", "marks", "preprocess_bwd", "preprocess_fwd",
+            "reduce", "ssim", "tile_render_bwd", "tile_render_fwd"]:
+        raise AssertionError("expected the nine kernels' sources and the "
                              "stage marks'")
     b1_cases = b1_edge_cases()
     b2_cases = b2_edge_cases()
@@ -3806,6 +3910,7 @@ def main(out: Path | None = None):
     reset_counts()
     for _, attr in SSIM_KERNELS:
         setattr(loss_ops.ssim_map, attr, 0)
+    adam_mod.update.launches = 0
     s, o = state0, opt0
     auxes, step_ms, seen0, first_step = [], [], None, None
     for k in range(N_POSES):
@@ -3819,9 +3924,11 @@ def main(out: Path | None = None):
     train_launches = read_counts()
     ssim_launches = {name: getattr(loss_ops.ssim_map, attr)
                      for name, attr in SSIM_KERNELS}
-    print(f"training path launches: {train_launches}, {ssim_launches}")
+    adam_launches = adam_mod.update.launches
+    print(f"training path launches: {train_launches}, {ssim_launches}, "
+          f"adam {adam_launches}")
     if any(v != N_POSES for v in (*train_launches.values(),
-                                  *ssim_launches.values())):
+                                  *ssim_launches.values(), adam_launches)):
         raise AssertionError(f"expected {N_POSES} launches of each kernel")
     losses = [float(a.loss) for a in auxes]
     n_inst_train = [int(a.num_instances) for a in auxes]
@@ -4014,6 +4121,18 @@ def main(out: Path | None = None):
             "plain_ms": at_full["plain_forward_ms"] if what == "forward"
             else at_full["plain_forward_backward_ms"]})
 
+    # --- 19. Adam's kernel ----------------------------------------------
+    torch.cuda.empty_cache()
+    adam_rec = adam_phase()
+    at_4m = adam_rec[str(ADAM_ROWS[-1])]
+    kernels.append({
+        "name": "adam_update", "route": "cuda",
+        "source": "rain_tpu_torch/csrc/adam.cu",
+        "replaces": "no Pallas kernel: rain_tpu left Adam to XLA",
+        "launches": adam_launches, "ms": at_4m["kernel_ms"],
+        "bound_ms": at_4m["bound_ms"], "bound_by": "bytes",
+        "plain_ms": at_4m["plain_ms"]})
+
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
@@ -4060,6 +4179,7 @@ def main(out: Path | None = None):
         "rounds": round_rec,
         "preprocess": prep_rec,
         "ssim": ssim_rec,
+        "adam": adam_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:
@@ -4078,6 +4198,7 @@ def main(out: Path | None = None):
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"preprocess": prep_rec}))
     print(json.dumps({"ssim": ssim_rec}))
+    print(json.dumps({"adam": adam_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -54,9 +54,10 @@ device inputs of the graph:
   round's only wait for the device, as rain_tpu's Trainer reads
   ``info.overflow`` once) and gives the new state a Python n_alive.
 - **Launch counters.** A replay adds to the launch counters of B1–B4,
-  of preprocess's two kernels and of the SSIM map's two (``COUNTED``)
-  the launches its capture recorded; the capture itself adds none, and the
-  warm-up counts as the eager step it is: one count per call and kernel.
+  of preprocess's two kernels, of the SSIM map's two and of Adam's
+  (``COUNTED``) the launches its capture recorded; the capture itself
+  adds none, and the warm-up counts as the eager step it is: one count
+  per call and kernel.
 - **Memory.** All graphs of one CompiledStep share one memory pool, and
   the graphs whose inputs have the same shapes share their input buffers.
   ``retire`` drops the graphs of keys whose capacity, or tier where the
@@ -121,12 +122,14 @@ from rain_tpu_torch.train import marks as marks_mod
 from rain_tpu_torch.train import step as step_mod
 
 # the launch counters a replay adds to, (wrapper, attribute): B1–B4's,
-# preprocess's forward and backward, the SSIM map's forward and backward
+# preprocess's forward and backward, the SSIM map's forward and backward,
+# Adam's
 COUNTED = tuple((f, "launches") for f in (
     expand_ops.expand_instances, expand_ops.reduce_instances,
     tile_render.composite_forward, tile_render.composite_backward,
     prep_ops.preprocess_forward, prep_ops.preprocess_backward)) + (
-    (loss_ops.ssim_map, "launches_fwd"), (loss_ops.ssim_map, "launches_bwd"))
+    (loss_ops.ssim_map, "launches_fwd"), (loss_ops.ssim_map, "launches_bwd"),
+    (adam_mod.update, "launches"))
 CAMERA = ("world_view", "full_proj", "camera_center", "tanfovx", "tanfovy")
 OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
 # the densify round's per-call thresholds, f32

@@ -68,9 +68,16 @@ def learning_rates(opt_cfg_leaves: dict, xyz_lr,
 def adam_update(params: gmod.GaussianParams, grads: gmod.GaussianParams,
                 opt: adam_mod.AdamState, opt_cfg_leaves: dict, xyz_lr):
     """The step's Adam update (``adam.update``) at the step's learning
-    rates (``learning_rates``); returns (params, AdamState)."""
+    rates (``learning_rates``); returns (params, AdamState).
+
+    Adam takes contiguous leaves. The plain preprocess's backward (the
+    CPU step's and the sharded step's) gives features_dc's and
+    features_rest's gradients as views of one [N, 16, 3] tensor (the
+    backward of ``gaussians.activate``'s cat), so they are made
+    contiguous here; the preprocess kernel's gradients already are, and
+    the one-card step on the card copies nothing."""
     return adam_mod.update(
-        params, grads, opt,
+        params, gmod.GaussianParams(*[g.contiguous() for g in grads]), opt,
         learning_rates(opt_cfg_leaves, xyz_lr, params.xyz.device))
 
 

@@ -6,6 +6,7 @@ chip_smoke.py makes the same checks at the main path's full shapes.
 
 import contextlib
 import gc
+import types
 
 import numpy as np
 import pytest
@@ -265,6 +266,109 @@ def test_ssim_map_rejects_what_the_kernels_do_not_take(cuda):
             loss_ops.ssim_map(*args)
     with pytest.raises(ValueError):
         loss_ops.ssim_map(a, b, window_size=7)
+
+
+# --- Adam's kernel AD (model/adam.py, csrc/adam.cu) -------------------
+
+# a row of each GaussianParams leaf
+ADAM_LEAF_SHAPES = ((3,), (1, 3), (15, 3), (3,), (4,), (1,))
+
+
+def _adam_inputs(device, cap, step, seed=0):
+    """Seeded params, gradients and moments of ``cap`` rows at step count
+    ``step - 1``, the last quarter of the rows dead (zero gradients and
+    moments)."""
+    rng = np.random.default_rng(seed)
+    alive = cap - cap // 4
+
+    def leaves(scale, fn=lambda x: x, dead=True):
+        out = []
+        for shape in ADAM_LEAF_SHAPES:
+            x = fn(rng.normal(0, scale, (cap,) + shape)).astype(np.float32)
+            if dead:
+                x[alive:] = 0.0
+            out.append(torch.from_numpy(x).to(device))
+        return gmod.GaussianParams(*out)
+
+    opt = adam_mod.AdamState(
+        mu=leaves(0.1), nu=leaves(0.01, np.square),
+        step=torch.full((), step - 1, dtype=torch.int32, device=device))
+    return leaves(1.0, dead=False), leaves(1.0), opt, alive
+
+
+def _adam_flat(params, opt):
+    return list(params) + list(opt.mu) + list(opt.nu) + [opt.step]
+
+
+def _same_bits(a, b):
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _adam_lrs(kind, device):
+    """The step's learning rates as numbers, as 0-d f32 tensors on the
+    card, or as 0-d f32 tensors in host memory."""
+    if kind == "number":
+        return adam_mod.learning_rates(types.SimpleNamespace(**OPT), 1.6e-4)
+    return step.learning_rates(OPT, 1.6e-4, device if kind == "device"
+                               else torch.device("cpu"))
+
+
+@pytest.mark.parametrize("lr_kind", ["number", "device", "host"])
+@pytest.mark.parametrize("step_count", [1, 1000])
+@pytest.mark.parametrize("cap", [1, 3, 4097, 262144])
+def test_adam_kernel_equals_plain_bits(cuda, cap, step_count, lr_kind):
+    """AD's p', m' and v' equal update_plain's on the card bit for bit, at
+    capacities whose leaves end off a multiple of 4 and of a block; the
+    inputs are left untouched, dead rows stay exactly unchanged and the
+    call counts one launch."""
+    params, grads, opt, alive = _adam_inputs(cuda, cap, step_count)
+    lrs = _adam_lrs(lr_kind, cuda)
+    given = _adam_flat(params, opt) + list(grads)
+    before = [t.clone() for t in given]
+    n0 = adam_mod.update.launches
+    got = adam_mod.update(params, grads, opt, lrs)
+    assert adam_mod.update.launches == n0 + 1
+    want = adam_mod.update_plain(params, grads, opt, lrs)
+    assert all(_same_bits(a, b) for a, b in zip(_adam_flat(*got),
+                                                _adam_flat(*want)))
+    assert all(_same_bits(a, b) for a, b in zip(given, before))
+    for a, b in zip(got[0], params):
+        assert _same_bits(a[alive:], b[alive:])
+    assert int(got[1].step) == step_count
+
+
+def test_compiled_step_adam_equals_plain_update(cuda):
+    """Three calls of CompiledStep.train_step, the first its capture, each
+    with another xyz_lr and a step count one higher: the parameters and
+    moments each call returns equal update_plain's over the gradients of
+    the eager step fed the same tensors, bit for bit, and each call counts
+    one launch of AD."""
+    steps = compiled.CompiledStep()
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    leaves = {k: torch.full((), v, device=cuda) for k, v in OPT.items()}
+    for k in range(3):
+        x = _step_inputs(cuda, k, False)
+        st = state._replace(n_alive=x["n_alive"])
+        args = (st, opt, x["camera"], x["gt"], x["bg"], x["low_pass"],
+                x["xyz_lr"])
+        kw = dict(width=W, height=H, sh_degree=3, max_instances=M,
+                  opt_cfg_leaves=leaves)
+        seen = {}
+        step.train_step(*args, **kw, on_stage=seen.__setitem__)
+        want = adam_mod.update_plain(
+            seen["densify_stats"].params, seen["grads"][0], opt,
+            step.learning_rates(leaves, x["xyz_lr"], cuda))
+        n0 = adam_mod.update.launches
+        got = steps.train_step(*args, **kw)
+        assert adam_mod.update.launches == n0 + 1
+        assert all(_same_bits(a, b) for a, b in zip(
+            _adam_flat(got[0].params, got[1]), _adam_flat(*want)))
+        assert int(got[1].step) == k + 1
+        state, opt = got[0], got[1]
+    assert len(steps.captures) == 1
 
 
 @pytest.mark.parametrize("real_wh", [None, (150, 100)])
@@ -650,8 +754,8 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
     """Six chained steps, the first captured: every replay on inputs
     unlike the capture's equals the eager train_step fed the same tensors,
     bit for bit; the inputs are left untouched; B1-B4's, preprocess's
-    two kernels' and the SSIM map's two counters count one launch per
-    call, replays included."""
+    two kernels', the SSIM map's two and Adam's counters count one launch
+    per call, replays included."""
     steps = compiled.CompiledStep()
     state = _state(cuda)
     opt = adam_mod.init(state.params)
@@ -674,7 +778,7 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
         want = step.train_step(*args, **kw)
         n0 = _launches()
         got = steps.train_step(*args, **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1] * 8
+        assert [b - a for a, b in zip(n0, _launches())] == [1] * 9
         for a, b in zip(_tensors(got), _tensors(want)):
             assert torch.equal(a, b)
         assert all(torch.equal(a, b) for a, b in zip(before, given))
@@ -722,9 +826,9 @@ def test_compiled_eval_render_replays_equal_eager(cuda):
         n0 = _launches()
         got = steps.eval_render(st, x["camera"], x["bg"], x["low_pass"], sm,
                                 **kw)
-        # B1, B3 and preprocess's forward; the render runs no SSIM
+        # B1, B3 and preprocess's forward; the render runs no SSIM, no Adam
         assert [b - a for a, b in zip(n0, _launches())] == \
-            [1, 0, 1, 0, 1, 0, 0, 0]
+            [1, 0, 1, 0, 1, 0, 0, 0, 0]
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.num_instances) > 0
@@ -1132,8 +1236,8 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
     """Two ranks, one card each, over NCCL (launch.spawn's default for
     cards): the sharded step through CompiledStep is captured once per rank
     and its 5 replays each equal the eager NCCL step bit for bit on every
-    rank, with B1-B4 counted once per replay (preprocess's kernels never:
-    the sharded step takes the plain ops). Skips with fewer than two
+    rank, with B1-B4, the SSIM map's two and Adam counted once per replay
+    (preprocess's kernels never: the sharded step takes the plain ops). Skips with fewer than two
     cards."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards: one per NCCL rank")
@@ -1153,4 +1257,4 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
         assert r["equal"] == [True] * 5, r
         assert (r["graphs"], r["captures"]) == (1, 1)
         # the sharded step preprocesses with plain ops (colors_override)
-        assert r["launches"] == [[1, 1, 1, 1, 0, 0, 1, 1]] * 5
+        assert r["launches"] == [[1, 1, 1, 1, 0, 0, 1, 1, 1]] * 5

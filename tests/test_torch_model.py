@@ -95,6 +95,77 @@ def test_adam_matches_torch_formula_and_leaves_inputs_untouched():
     assert all(torch.all(x == 0.0) for x in opt.mu + opt.nu)
 
 
+def _adam_inputs(n=16, cap=64, seed=5):
+    """A CPU state with seeded gradients and moments on its first ``n``
+    rows (the rest dead: zero), at step 6."""
+    _, tstate = _states(n, cap)
+    rng = np.random.default_rng(seed)
+
+    def leaves(scale, fn=lambda x: x):
+        return tgmod.GaussianParams(*[torch.from_numpy(fn(np.where(
+            np.arange(cap).reshape((-1,) + (1,) * (p.dim() - 1)) < n,
+            rng.normal(0, scale, tuple(p.shape)), 0.0)).astype(np.float32))
+            for p in tstate.params])
+
+    opt = tadam.AdamState(mu=leaves(0.1), nu=leaves(0.01, np.square),
+                          step=torch.tensor(5, dtype=torch.int32))
+    return tstate.params, leaves(1.0), opt
+
+
+def test_adam_update_on_cpu_is_update_plain_bits():
+    params, grads, opt = _adam_inputs()
+    lrs = tgmod.GaussianParams(torch.tensor(LRS[0]), *LRS[1:])
+    n0 = tadam.update.launches
+    got_p, got_opt = tadam.update(params, grads, opt, lrs)
+    want_p, want_opt = tadam.update_plain(params, grads, opt, lrs)
+    assert tadam.update.launches == n0
+    for a, b in zip(list(got_p) + list(got_opt.mu) + list(got_opt.nu),
+                    list(want_p) + list(want_opt.mu) + list(want_opt.nu)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(got_opt.step) == int(want_opt.step) == 6
+    for a, b in zip(got_p, params):     # dead rows unchanged
+        assert torch.equal(a[16:].view(torch.int32), b[16:].view(torch.int32))
+
+
+def _bad_adam_input(case):
+    """(params, grads, state, lrs) with one thing the kernel does not take."""
+    params, grads, opt = _adam_inputs()
+    lrs = tgmod.GaussianParams(*LRS)
+    if case == "non-contiguous":
+        grads = grads._replace(features_rest=grads.features_rest.transpose(
+            1, 2).contiguous().transpose(1, 2))
+    elif case == "float64":
+        opt = opt._replace(nu=opt.nu._replace(scaling=opt.nu.scaling.double()))
+    elif case == "shape":
+        grads = grads._replace(opacity=grads.opacity[:-1])
+    elif case == "mixed-device":
+        opt = opt._replace(mu=opt.mu._replace(
+            rotation=torch.empty_like(opt.mu.rotation, device="meta")))
+    elif case == "learning-rate":
+        lrs = lrs._replace(xyz=torch.tensor(LRS[0], dtype=torch.float64))
+    elif case == "step-device":
+        opt = opt._replace(step=torch.empty((), dtype=torch.int32,
+                                            device="meta"))
+    return params, grads, opt, lrs
+
+
+@pytest.mark.parametrize("case", ["non-contiguous", "float64", "shape",
+                                  "mixed-device", "learning-rate",
+                                  "step-device"])
+def test_adam_update_rejects_what_the_kernel_does_not_take(case):
+    args = _bad_adam_input(case)
+    n0 = tadam.update.launches
+    with pytest.raises(ValueError):
+        tadam.update(*args)
+    assert tadam.update.launches == n0
+
+
+def test_compiled_counts_adam_launches():
+    from rain_tpu_torch.train import compiled
+    assert compiled.COUNTED[-1] == (tadam.update, "launches")
+    assert compiled.launch_counts()[-1] == tadam.update.launches
+
+
 def test_adam_from_numpy_and_zero_moments_for():
     jstate, _ = _states()
     jopt = jadam.init(jstate.params)
