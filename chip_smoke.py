@@ -363,13 +363,27 @@ numbers); any failure exits non-zero before the result lines:
    update_plain, in ms, beside the bytes bound (28 a parameter at 3.35
    TB/s) and the kernel's share of it; the resident blocks per SM. Phase
    4 also counts one launch per step. Printed as one {"adam": ...} line.
+20. Depth regularization (train.step's DepthTarget) on the benchmark's
+   262k start (gsbench/configs/garden_init_262k.json, its state and
+   target image made from one seed, its tier 8,388,608), pan pose 0 at
+   1297x840, the seeded inverse-depth target of the init262k.depth cell's
+   traffic, a mask of ones and w(1): one eager step, the launch counters
+   set to 0 just before and read just after (each kernel once, B4's
+   depth variant once). B2 at ten rows and B4's depth variant against
+   their plain versions on the step's inputs bit for bit, then each
+   timed beside its bound (B4d's from gsbench/work/depth.py's count of
+   the reference's composited pairs, B2's as phase 6 counts it, at ten
+   rows), with B4's default variant and B2 at nine rows on the same
+   inputs and the plain versions' one call. Printed as one
+   {"depth": ...} line.
 
 It prints its wall time, the nvidia-smi line, one {"kernels": [...]} line
 (each kernel's launches in phase 4, and but for the SSIM map's two and
 Adam's in phases 8, 9, 10, 11, 12, 13 and 15; B1-B4's ms and bound ms at phase
 12's tiers, preprocess's kernels' at phase 17's 4m scene, the SSIM
-map's at phase 18's 1297x840, Adam's at phase 19's 4,194,304 rows; the
-rounds of phases 7, 9, 12, 13 and 16 launch none of them) and, last,
+map's at phase 18's 1297x840, Adam's at phase 19's 4,194,304 rows, B4's
+depth variant's and B2's at ten rows at phase 20's step (its launches);
+the rounds of phases 7, 9, 12, 13 and 16 launch none of them) and, last,
 the {"ok": true, "device": {...}} line; with --out it also writes every
 number it took to that JSON file, and B2's tiles and M at the Trainer step
 to b2_trainer_step.npz beside it (the input of chip_ablate.py --b2-step).
@@ -433,7 +447,13 @@ from rain_tpu_torch.train import trainer as trainer_mod
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from gsbench import camera as gsbench_camera  # noqa: E402
+from gsbench import program as gsbench_program  # noqa: E402
 from gsbench import scene as gsbench_scene  # noqa: E402
+from gsbench.loops import depth_train  # noqa: E402
+from gsbench.loops import train as train_loop  # noqa: E402
+from gsbench.reference import depth as ref_depth  # noqa: E402
+from gsbench.reference import step as ref_step  # noqa: E402
+from gsbench.work import depth as depth_work  # noqa: E402
 # the H100's peaks, the compositors' operation counts and the roofline
 from gsbench.work import (OPS_BWD_COMP, OPS_COMP, OPS_EVAL,  # noqa: E402
                           PEAK_BYTES_S, PEAK_F32_OPS_S, bound_s)
@@ -3786,6 +3806,164 @@ def adam_phase():
     return rec
 
 
+DEPTH_CONFIG, DEPTH_TRAFFIC = "garden_init_262k", "train_pan_depth"
+DEPTH_SEED = 4195000023
+DEPTH_KERNELS = (
+    ("composite_backward_depth", "rain_tpu_torch/csrc/tile_render_bwd.cu"),
+    ("reduce_instances_10", "rain_tpu_torch/csrc/reduce.cu"))
+
+
+def timed_once(fn):
+    """(fn's result, the CUDA-event ms of that one call)."""
+    torch.cuda.synchronize()
+    start = _event()
+    out = fn()
+    end = _event()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@torch.no_grad()
+def depth_kernels(seen, width, height, max_instances, shape):
+    """B4's depth variant and B2 at ten rows of one depth-regularized
+    step, on the inputs the step gave them: each against its plain
+    version bit for bit (one call of the plain version, timed), then timed
+    (device_ms) beside its bound, and B4's default variant and B2 at nine
+    rows on the same inputs. B4d's bound is gsbench/work/depth.py's count
+    of the reference's composited pairs (``shape``, gsbench.loops.train.
+    shape); B2's is step_kernels' at ten rows. Returns the record."""
+    d_rank, exc, tiles_n, d_sum = seen["reduce_B2"]
+    if d_rank.shape[0] != tile_render.DEPTH_GRAD_ROWS:
+        raise AssertionError(f"B2 reduced {d_rank.shape[0]} rows, not ten")
+    want, b2_plain_ms = timed_once(
+        lambda: expand_ops.reduce_instances_torch(d_rank, exc, tiles_n))
+    if not bitwise_equal(d_sum, want):
+        raise AssertionError("B2 at ten rows differs from its plain version")
+    if not float(want[tile_render.ROW_DEPTH].abs().max()) > 0.0:
+        raise AssertionError("B2's tenth row is zero")
+    del want
+    args, d_pack = seen["composite_bwd_B4"]
+    want, b4d_plain_ms = timed_once(
+        lambda: tile_render.composite_backward_torch(*args, depth=True))
+    if not bitwise_equal(d_pack, want):
+        err = (d_pack - want).abs().amax(dim=1)
+        raise AssertionError(f"B4's depth variant differs from its plain "
+                             f"version: max abs error per row "
+                             f"{[f'{float(e):.3g}' for e in err]}")
+    if not float(d_pack[tile_render.ROW_DEPTH].abs().max()) > 0.0:
+        raise AssertionError("B4's depth variant wrote a zero row 9")
+    del want
+    print(f"depth step {width}x{height}: B2 at ten rows and B4's depth "
+          f"variant bitwise equal to their plain versions")
+    n = exc.shape[0]
+    live = shape.instances
+    b4d = depth_work.composite_bwd(shape)
+    b2_bytes, b2_ops = 10 * 4 * live + (8 + 4) * n + 10 * 4 * n, 10 * live
+    nine = d_rank[:tile_render.GRAD_ROWS].contiguous()
+    rows = {}
+    for name, call, (nbytes, ops), plain_ms, other in (
+            ("composite_backward_depth",
+             lambda: tile_render.composite_backward(*args, depth=True),
+             b4d, b4d_plain_ms,
+             ("composite_backward",
+              lambda: tile_render.composite_backward(*args))),
+            ("reduce_instances_10",
+             lambda: expand_ops.reduce_instances(d_rank, exc, tiles_n),
+             (b2_bytes, b2_ops), b2_plain_ms,
+             ("reduce_instances_9",
+              lambda: expand_ops.reduce_instances(nine, exc, tiles_n)))):
+        bound_ms, bound_by = bound(nbytes, ops)
+        ms = device_ms(call)
+        rows[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "roofline_share": bound_ms / ms, "plain_ms": plain_ms,
+                      "max_abs_err": 0.0, "same_inputs": {
+                          other[0]: device_ms(other[1])}}
+    print("depth step kernels (ms, bound ms, plain ms): " + json.dumps(
+        {k: [r["ms"], r["bound_ms"], r["plain_ms"]] for k, r in
+         rows.items()}))
+    return rows, {"b4d_bytes": b4d.nbytes, "b4d_ops": b4d.ops,
+                  "b2_bytes": b2_bytes, "b2_ops": b2_ops,
+                  "instances": live, "composited": shape.composited,
+                  "tiles": shape.tiles}
+
+
+def depth_phase():
+    """The depth-regularized training step (phase 20): train.step's
+    DepthTarget on the benchmark's 262k start (gsbench/configs/
+    garden_init_262k.json, its state made from one seed, its tier),
+    pan pose 0 at 1297x840 with its seeded target image, the seeded
+    inverse-depth target of gsbench/traffic/train_pan_depth.json
+    (gsbench.loops.depth_train.targets), a mask of ones and w(1). The
+    launch counters are set to 0 just before the step and read just
+    after: B1-B4 and preprocess's two kernels once, B4's depth variant
+    once. Loss, inverse depth and params finite, no overflow. Then
+    ``depth_kernels``. Returns the record; its "kernels" are rows of the
+    kernel table."""
+    cfg = json.loads((ROOT / "gsbench" / "configs" /
+                      f"{DEPTH_CONFIG}.json").read_text())
+    traffic = json.loads((ROOT / "gsbench" / "traffic" /
+                          f"{DEPTH_TRAFFIC}.json").read_text())
+    d, hp = traffic["depth"], traffic["hyper"]
+    width, height, m = cfg["width"], cfg["height"], cfg["max_instances"]
+    p0 = gsbench_scene.make_params(cfg, DEPTH_SEED, DEV)
+    gt = gsbench_scene.make_targets(1, height, width, DEPTH_SEED, DEV)[0]
+    cam = gsbench_camera.pick(gsbench_camera.stack(
+        [gsbench_camera.pan_pose(0)], DEV), 0)
+    target = step.DepthTarget(
+        depth_train.targets(1, height, width, DEPTH_SEED, DEV,
+                            near=d["near"], far=d["far"],
+                            components=d["components"],
+                            max_cycles=d["max_cycles"])[0],
+        torch.ones((height, width), device=DEV),
+        ref_depth.depth_weight(1, d["weight_init"], d["weight_final"],
+                               d["weight_steps"]))
+    bg = torch.tensor(traffic["background"], device=DEV)
+    state = gsbench_program.state(p0)
+    seen = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    tile_render.composite_backward.launches_depth = 0
+    new_state, _, aux = step.train_step(
+        state, adam_mod.init(state.params), cam, gt, bg, hp["low_pass"],
+        hp["xyz_lr"], width=width, height=height,
+        sh_degree=cfg["sh_degree"], max_instances=m,
+        opt_cfg_leaves=hp["opt_leaves"], lambda_dssim=hp["lambda_dssim"],
+        on_stage=stage_hook(seen), depth=target)
+    torch.cuda.synchronize()
+    launches = dict(read_counts(), composite_backward_depth=(
+        tile_render.composite_backward.launches_depth))
+    print(f"depth step launches: {launches}")
+    if launches != dict(launches_for(0, 1), composite_backward_depth=1):
+        raise AssertionError("expected one launch of each kernel and of "
+                             "B4's depth variant")
+    n_inst = int(aux.num_instances)
+    if bool(aux.instance_overflow) or not math.isfinite(float(aux.loss)) \
+            or not bool(torch.isfinite(aux.inv_depth).all()) or \
+            not all(bool(torch.isfinite(p).all()) for p in new_state.params):
+        raise AssertionError(f"depth step: loss {float(aux.loss)}, "
+                             f"instances {n_inst}, overflow or not finite")
+    del new_state
+    fr = ref_step.render(p0, cam, bg, width=width, height=height,
+                         sh_degree=cfg["sh_degree"],
+                         low_pass=hp["low_pass"])
+    shape = train_loop.shape(cfg, fr)
+    del fr
+    rows, work = depth_kernels(seen, width, height, m, shape)
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": "no Pallas kernel: rain_tpu has no depth "
+                "regularization",
+                "launches": launches["composite_backward_depth"
+                                     if name.startswith("composite")
+                                     else "reduce_instances"], **rows[name]}
+               for name, source in DEPTH_KERNELS]
+    rec = {"config": DEPTH_CONFIG, "seed": DEPTH_SEED, "width": width,
+           "height": height, "max_instances": m, "instances": n_inst,
+           "loss": float(aux.loss), "weight": float(target.weight),
+           "launches": launches, "work": work, "kernels": kernels}
+    print(json.dumps({"depth": rec}))
+    return rec
+
+
 def main(out: Path | None = None):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4133,6 +4311,11 @@ def main(out: Path | None = None):
         "bound_ms": at_4m["bound_ms"], "bound_by": "bytes",
         "plain_ms": at_4m["plain_ms"]})
 
+    # --- 20. the depth-regularized step ---------------------------------
+    torch.cuda.empty_cache()
+    depth_rec = depth_phase()
+    kernels += depth_rec["kernels"]
+
     record = {
         "card": card, "build_s": build_s, "ptxas": ptxas,
         "blocks_per_sm": blocks_per_sm, "b1_cases": b1_cases,
@@ -4180,6 +4363,7 @@ def main(out: Path | None = None):
         "preprocess": prep_rec,
         "ssim": ssim_rec,
         "adam": adam_rec,
+        "depth": depth_rec,
         "wall_s": time.perf_counter() - t_start,
     }
     if out is not None:
@@ -4199,6 +4383,7 @@ def main(out: Path | None = None):
     print(json.dumps({"preprocess": prep_rec}))
     print(json.dumps({"ssim": ssim_rec}))
     print(json.dumps({"adam": adam_rec}))
+    print(json.dumps({"depth": depth_rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,13 @@ configures either package. Counterpart of the reference ParamGroup
 reflection system (arguments/__init__.py:9-102), persisted as JSON instead
 of a re-``eval()``-ed Namespace string (the reference's cfg_args
 mechanism, arguments/__init__.py:95).
+
+The port adds depth regularization's flags (graphdeco-inria/
+gaussian-splatting's 2024 update: ModelParams ``-d/--depths``,
+OptimizationParams ``depth_l1_weight_init`` / ``_final``), which
+rain_tpu lacks (``PORT_ONLY``). ``save_config`` leaves them out while
+they hold their defaults, so a configuration that does not use them is
+saved as rain_tpu saves it and loads in either package.
 """
 
 from __future__ import annotations
@@ -52,9 +59,12 @@ class ModelParams:
     resolution: int = -1
     white_background: bool = False
     eval: bool = False
+    # upstream's depth regularization: the folder of 16-bit inverse depth
+    # maps, one PNG per image ("" = no depth term)
+    depths: str = ""
 
     SHORTHANDS = {"source_path", "model_path", "images", "resolution",
-                  "white_background"}
+                  "white_background", "depths"}
 
 
 @dataclass
@@ -98,6 +108,10 @@ class OptimizationParams:
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
     random_background: bool = False
+    # the depth term's weight, log-linear from init to final over the
+    # iterations (upstream's train.py)
+    depth_l1_weight_init: float = 1.0
+    depth_l1_weight_final: float = 0.01
 
     SHORTHANDS = frozenset()
 
@@ -150,6 +164,9 @@ GROUPS = {
     "rain": RainParams,
     "system": SystemParams,
 }
+# the port's fields that rain_tpu's groups lack
+PORT_ONLY = {"model": ("depths",),
+             "opt": ("depth_l1_weight_init", "depth_l1_weight_final")}
 
 
 def build_parser(description: str,
@@ -228,7 +245,15 @@ def merge_saved(cfgs: dict, loaded: dict, explicit: set[str]) -> dict:
 
 
 def save_config(cfgs: dict, path: str | Path):
-    payload = {name: dataclasses.asdict(cfg) for name, cfg in cfgs.items()}
+    """Write ``cfgs`` as JSON; the ``PORT_ONLY`` fields only where they
+    differ from their defaults."""
+    payload = {}
+    for name, cfg in cfgs.items():
+        d = dataclasses.asdict(cfg)
+        for f in PORT_ONLY.get(name, ()):
+            if d[f] == getattr(type(cfg)(), f):
+                del d[f]
+        payload[name] = d
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(payload, indent=2))
 

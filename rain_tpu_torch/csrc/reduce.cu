@@ -278,6 +278,8 @@ extern "C" int rain_reduce_instances(int device, void* stream, const void* d,
   const auto* tp = (const int32_t*)tiles;
   if (rows == 9)  // the pack's gradient rows: the main path
     return launch<9, true>(s, dp, rows, m, ep, tp, n, (float*)out);
+  if (rows == 10)  // and the inverse-depth row: depth regularization
+    return launch<10, true>(s, dp, rows, m, ep, tp, n, (float*)out);
   return launch<kMaxRows, false>(s, dp, rows, m, ep, tp, n, (float*)out);
 }
 

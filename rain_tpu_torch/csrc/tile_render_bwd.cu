@@ -76,6 +76,23 @@
 // rows, a walk split into evaluation and recurrence passes and a walk
 // that stops at each warp's largest n_contrib measured no faster here and
 // are left out (PERF.md).
+//
+// The depth variant (composite_depth_bwd_kernel, entry
+// rain_composite_backward_depth) is the same body with kDepth: the pack's
+// row 9 then holds each Gaussian's inverse depth d = 1/z (ops/binning.py's
+// inverse-depth path), channel 3 of the tiles the inverse depth D it
+// composited and channel 3 of the cotangent g_D. The depth channel is one
+// more colour with no background term: c . g gains d g_D (after the three
+// colours, in that order), the seed C . g gains D g_D, and a tenth sum,
+// of w g_D, is written to row 9 (the gradient of d). The default variant
+// reads neither and writes row 9 zero, as before. The depth variant's
+// phase B computes each pixel's coordinates from its thread instead of
+// reading them from shared memory: the 4th cotangent row and the 10th
+// sum row (1,152 bytes) would otherwise take its shared memory past the
+// 76,800 bytes a block at which three blocks fit an SM (on an H100 80GB
+// HBM3 at 700 W, at the 262k garden start's training step, a build that
+// read them ran two blocks, 4.35 ms where B4 takes 2.40; this one three,
+// 3.72 ms; PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +111,7 @@ constexpr int kSplit = kPix / kChunk; // threads per instance in phase B
 static_assert(kSplit == 8, "phase B gathers ballot bits 8 apart");
 constexpr int kStride = kPix + kSplit;  // padded row of the s_gd, s_w tiles
 constexpr int kRows = 9;              // gradient rows (ROW_A .. ROW_B2)
+constexpr int kDepthRows = 10;        // the depth variant's: .. ROW_DEPTH
 constexpr int kOutRows = 16;          // rows of d_pack
 constexpr int kRec = 12;              // floats per instance record
 constexpr unsigned kFull = 0xffffffffu;
@@ -103,8 +121,8 @@ enum Moment { kMx, kMy, kMxx, kMyy, kMxy };
 constexpr size_t kDynSmem = 2 * kChunk * kStride * sizeof(float);
 
 // pack row -> record slot. Record: {xg, yg, a, b}, {c, op, unused, block
-// mask bits}, {r, g, b, unused}.
-__constant__ int kSlot[kRows] = {2, 3, 4, 0, 1, 5, 8, 9, 10};
+// mask bits}, {r, g, b, inverse depth (the depth variant's; else unused)}.
+__constant__ int kSlot[kDepthRows] = {2, 3, 4, 0, 1, 5, 8, 9, 10, 11};
 
 __device__ __forceinline__ void zero_columns(float* __restrict__ d_pack,
                                              int64_t m, int64_t lo,
@@ -116,20 +134,24 @@ __device__ __forceinline__ void zero_columns(float* __restrict__ d_pack,
   }
 }
 
-__global__ void __launch_bounds__(kPix) composite_bwd_kernel(
+// The kernel's body; kDepth: the depth variant (see the header).
+template <bool kDepth>
+__device__ __forceinline__ void composite_bwd_body(
     const float* __restrict__ pack, int64_t m,
     const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
     int n_tiles, int n_fill, int toff, int grid_x,
     const float* __restrict__ tiles, const float* __restrict__ g_tiles,
     float* __restrict__ d_pack) {
+  constexpr int R = kDepth ? kDepthRows : kRows;  // rows written
   extern __shared__ float dyn[];
   float* s_gd = dyn;                      // [kChunk][kStride]
   float* s_w = dyn + kChunk * kStride;    // [kChunk][kStride]
   __shared__ __align__(16) float s_rec[kChunk][kRec];
   __shared__ unsigned s_ballot[kChunk][kWarps];
-  __shared__ float s_g[3][kPix];
-  __shared__ float s_pc[2][kPix];       // pixel coordinates px, py
-  __shared__ float s_sum[kRows][kChunk];
+  __shared__ float s_g[kDepth ? 4 : 3][kPix];
+  // pixel coordinates px, py (the depth variant computes them instead)
+  __shared__ float s_pc[2][kDepth ? 1 : kPix];
+  __shared__ float s_sum[R][kChunk];
   __shared__ int warp_last[kWarps];
   const int tid = threadIdx.x;
   if ((int)blockIdx.x < n_fill) {
@@ -157,13 +179,21 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
   const float* gp = g_tiles + ((int64_t)t * kPix + pix) * 8;
   const float g_r = gp[0], g_g = gp[1], g_b = gp[2];
   s_g[0][tid] = g_r;
-  s_pc[0][tid] = px;
-  s_pc[1][tid] = py;
+  if constexpr (!kDepth) {
+    s_pc[0][tid] = px;
+    s_pc[1][tid] = py;
+  }
   s_g[1][tid] = g_g;
   s_g[2][tid] = g_b;
   const float bg = o[5] * gp[5];        // T_final * g_T
   const int last = (int)o[6];           // n_contrib
   float rest = o[0] * g_r + o[1] * g_g + o[2] * g_b;   // C . g
+  float g_d = 0.0f;
+  if constexpr (kDepth) {
+    g_d = gp[3];
+    s_g[3][tid] = g_d;
+    rest = rest + o[3] * g_d;           // + D g_D
+  }
   float T = 1.0f;
 
   const int wl = __reduce_max_sync(kFull, last);
@@ -181,7 +211,7 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
     if (tid < cnt) {
       float* q = s_rec[tid];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int r = 0; r < R; ++r)
         q[kSlot[r]] = pack[r * m + start + base + tid];
       q[7] = __uint_as_float(rain_cull::block_mask(
           q[2], q[3], q[4], q[0], q[1],
@@ -213,7 +243,8 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
           if (alpha >= alpha_min) {
             active = true;
             const float4 q2 = reinterpret_cast<const float4*>(s_rec[j])[2];
-            const float cgd = g_r * q2.x + g_g * q2.y + g_b * q2.z;
+            float cgd = g_r * q2.x + g_g * q2.y + g_b * q2.z;
+            if constexpr (kDepth) cgd = cgd + g_d * q2.w;
             const float om = 1.0f - alpha;
             const float w = alpha * T;
             rest = rest - w * cgd;
@@ -230,9 +261,9 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
     __syncthreads();
 
     // phase B: the reduction, over the composited pixels only
-    float acc[kRows];
+    float acc[R];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = 0.0f;
+    for (int q = 0; q < R; ++q) acc[q] = 0.0f;
     if (j_b < cnt) {
       const float xg = s_rec[j_b][0], yg = s_rec[j_b][1];
       const float op = s_rec[j_b][5];
@@ -248,12 +279,20 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
         sel |= ((bits * 0x10204080u) >> 28) << (4 * g);
       }
       while (sel != 0u) {
-        const int th = s_b + kSplit * (__ffs(sel) - 1);
+        const int bit = __ffs(sel) - 1;
+        const int th = s_b + kSplit * bit;
         sel &= sel - 1u;
         const float gd = gd_row[th];
         const float w = w_row[th];
-        const float dx = xg - s_pc[0][th];
-        const float dy = yg - s_pc[1][th];
+        float dx, dy;
+        if constexpr (kDepth) {
+          const int p = rain_cull::pixel_of(th);
+          dx = xg - (float)(tx0 + p % kTile);
+          dy = yg - (float)(ty0 + p / kTile);
+        } else {
+          dx = xg - s_pc[0][th];
+          dy = yg - s_pc[1][th];
+        }
         const float dpow = gd * op;
         const float ex = dpow * dx, ey = dpow * dy;
         acc[kMx] = acc[kMx] + ex;
@@ -265,12 +304,13 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
         acc[6] = acc[6] + w * s_g[0][th];
         acc[7] = acc[7] + w * s_g[1][th];
         acc[8] = acc[8] + w * s_g[2][th];
+        if constexpr (kDepth) acc[9] = acc[9] + w * s_g[3][th];
       }
     }
 #pragma unroll
     for (int off = kSplit / 2; off > 0; off >>= 1) {
 #pragma unroll
-      for (int q = 0; q < kRows; ++q)
+      for (int q = 0; q < R; ++q)
         acc[q] = acc[q] + __shfl_down_sync(kFull, acc[q], off);
     }
     if (s_b == 0 && j_b < cnt) {
@@ -282,13 +322,13 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
       s_sum[kXg][j_b] = -(a * acc[kMx] + b * acc[kMy]);
       s_sum[kYg][j_b] = -(cc * acc[kMy] + b * acc[kMx]);
 #pragma unroll
-      for (int q = kOp; q < kRows; ++q) s_sum[q][j_b] = acc[q];
+      for (int q = kOp; q < R; ++q) s_sum[q][j_b] = acc[q];
     }
     __syncthreads();
     for (int idx = tid; idx < kOutRows * cnt; idx += kPix) {
       const int r = idx / cnt;
       const int j = idx - r * cnt;
-      d_pack[r * m + start + base + j] = r < kRows ? s_sum[r][j] : 0.0f;
+      d_pack[r * m + start + base + j] = r < R ? s_sum[r][j] : 0.0f;
     }
   }
 
@@ -298,6 +338,53 @@ __global__ void __launch_bounds__(kPix) composite_bwd_kernel(
   const int64_t hi = next > end ? next : end;
   zero_columns(d_pack, m, start + n_walk, hi, tid, kPix);
   if (t == 0) zero_columns(d_pack, m, 0, start, tid, kPix);
+}
+
+__global__ void __launch_bounds__(kPix) composite_bwd_kernel(
+    const float* __restrict__ pack, int64_t m,
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
+    int n_tiles, int n_fill, int toff, int grid_x,
+    const float* __restrict__ tiles, const float* __restrict__ g_tiles,
+    float* __restrict__ d_pack) {
+  composite_bwd_body<false>(pack, m, starts, ends, n_tiles, n_fill, toff,
+                            grid_x, tiles, g_tiles, d_pack);
+}
+
+__global__ void __launch_bounds__(kPix) composite_depth_bwd_kernel(
+    const float* __restrict__ pack, int64_t m,
+    const int32_t* __restrict__ starts, const int32_t* __restrict__ ends,
+    int n_tiles, int n_fill, int toff, int grid_x,
+    const float* __restrict__ tiles, const float* __restrict__ g_tiles,
+    float* __restrict__ d_pack) {
+  composite_bwd_body<true>(pack, m, starts, ends, n_tiles, n_fill, toff,
+                           grid_x, tiles, g_tiles, d_pack);
+}
+
+using Kernel = void (*)(const float*, int64_t, const int32_t*,
+                        const int32_t*, int, int, int, int, const float*,
+                        const float*, float*);
+
+int launch(Kernel kernel, int device, void* stream, const void* pack,
+           int64_t m, const void* starts, const void* ends, int n_tiles,
+           int toff, int grid_x, const void* tiles, const void* g_tiles,
+           void* d_pack) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_tiles == 0) {
+    return (int)cudaMemsetAsync(d_pack, 0, (size_t)kOutRows * m * sizeof(float),
+                                (cudaStream_t)stream);
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDynSmem);
+  if (err != cudaSuccess) return (int)err;
+  // blocks that zero the columns past the last range, ~8k columns each
+  const int n_fill = (int)std::min<int64_t>((m + 8191) / 8192, 256);
+  kernel<<<n_fill + n_tiles, kPix, kDynSmem, (cudaStream_t)stream>>>(
+      (const float*)pack, m, (const int32_t*)starts, (const int32_t*)ends,
+      n_tiles, n_fill, toff, grid_x, (const float*)tiles,
+      (const float*)g_tiles, (float*)d_pack);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -311,24 +398,18 @@ extern "C" int rain_composite_backward(int device, void* stream,
                                        int n_tiles, int toff, int grid_x,
                                        const void* tiles, const void* g_tiles,
                                        void* d_pack) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_tiles == 0) {
-    return (int)cudaMemsetAsync(d_pack, 0, (size_t)kOutRows * m * sizeof(float),
-                                (cudaStream_t)stream);
-  }
-  err = cudaFuncSetAttribute(composite_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDynSmem);
-  if (err != cudaSuccess) return (int)err;
-  // blocks that zero the columns past the last range, ~8k columns each
-  const int n_fill = (int)std::min<int64_t>((m + 8191) / 8192, 256);
-  composite_bwd_kernel<<<n_fill + n_tiles, kPix, kDynSmem,
-                         (cudaStream_t)stream>>>(
-      (const float*)pack, m, (const int32_t*)starts, (const int32_t*)ends,
-      n_tiles, n_fill, toff, grid_x, (const float*)tiles,
-      (const float*)g_tiles, (float*)d_pack);
-  return (int)cudaGetLastError();
+  return launch(composite_bwd_kernel, device, stream, pack, m, starts, ends,
+                n_tiles, toff, grid_x, tiles, g_tiles, d_pack);
+}
+
+// The depth variant: the same arguments; g_tiles' channel 3 is read and
+// row 9 of d_pack takes the gradient of the pack's row 9.
+extern "C" int rain_composite_backward_depth(
+    int device, void* stream, const void* pack, int64_t m,
+    const void* starts, const void* ends, int n_tiles, int toff, int grid_x,
+    const void* tiles, const void* g_tiles, void* d_pack) {
+  return launch(composite_depth_bwd_kernel, device, stream, pack, m, starts,
+                ends, n_tiles, toff, grid_x, tiles, g_tiles, d_pack);
 }
 
 // Resident blocks per SM of the kernel (cudaOccupancy...), into *blocks.

@@ -92,6 +92,12 @@ class Camera:
     trans: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3, dtype=np.float64))
     scale: float = 1.0
+    # depth regularization's target (upstream scene/cameras.py, port
+    # only): the inverse depth map [H, W] float32, its mask [H, W]
+    # (ones, zeros for a map that is not reliable) and the flag
+    invdepthmap: np.ndarray | None = None
+    depth_mask: np.ndarray | None = None
+    depth_reliable: bool = False
 
     def __post_init__(self):
         self.world_view = world_to_view(self.R, self.T, self.trans, self.scale)

@@ -14,6 +14,22 @@ Blender RGBA is composited over the background
 (dataset_readers.py:254-258). The loaders return numpy, and
 their ``rng`` draws are rain_tpu's calls in rain_tpu's order, so the init
 points are the same bit for bit.
+
+Depth regularization's targets (port only; graphdeco-inria/
+gaussian-splatting's 2024 readers, ``-d/--depths``): a COLMAP scene's
+``<depths>/<image name>.png``, 16-bit inverse depth maps (Depth Anything
+V2's, as upstream's ``utils/make_depth_scale.py`` aligns them), with the
+per-image ``scale`` and ``offset`` of ``sparse/0/depth_params.json`` and
+the median of the positive scales, ``med_scale``. Each map is read as
+raw / 2^16, resized bilinearly to the camera's training size (half-pixel
+centres, as ``cv2.resize``'s INTER_LINEAR), scaled and offset where its
+scale is positive, and clamped at 0; an image whose scale lies outside
+[0.2, 5]·med_scale is not reliable, and its mask is zero. One departure
+from upstream's ``scene/cameras.py``: upstream clamps at 0 before the
+scale and offset, so an offset below zero can leave negative targets;
+here the clamp comes last and every target is at least 0. An image
+missing from ``depth_params.json`` keeps its map unscaled and reliable,
+as upstream's. A Blender scene takes no depth maps here.
 """
 
 from __future__ import annotations
@@ -58,6 +74,66 @@ def _load_image(path, resolution, bg=None):
     return np.clip(arr[:, :, :3].transpose(2, 0, 1), 0.0, 1.0)
 
 
+def depth_params(sparse: Path) -> dict | None:
+    """``sparse/depth_params.json`` ({image name: {scale, offset}}) with
+    ``med_scale`` added to each entry (the median of the positive scales,
+    0 without one), or None without the file (upstream's
+    readColmapSceneInfo)."""
+    path = Path(sparse) / "depth_params.json"
+    if not path.exists():
+        return None
+    params = json.loads(path.read_text())
+    scales = np.array([v["scale"] for v in params.values()], np.float64)
+    med = float(np.median(scales[scales > 0])) if (scales > 0).any() else 0.0
+    return {k: dict(v, med_scale=med) for k, v in params.items()}
+
+
+def resize_bilinear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """[H0, W0] float32 → [h, w] float32 by bilinear interpolation with
+    half-pixel centres and edge clamping, as ``cv2.resize``'s INTER_LINEAR
+    takes a float image (source coordinates in double, weights in
+    float)."""
+    def taps(n_out, n_in):
+        x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        x = np.clip(x, 0, n_in - 1)
+        i0 = np.floor(x).astype(np.int64)
+        i1 = np.minimum(i0 + 1, n_in - 1)
+        return i0, i1, (x - i0).astype(np.float32)
+    y0, y1, fy = taps(h, img.shape[0])
+    x0, x1, fx = taps(w, img.shape[1])
+    top = img[y0][:, x0] * (1 - fx) + img[y0][:, x1] * fx
+    bot = img[y1][:, x0] * (1 - fx) + img[y1][:, x1] * fx
+    return (top * (1 - fy[:, None]) + bot * fy[:, None]).astype(np.float32)
+
+
+def load_inverse_depth(path, resolution, params: dict | None):
+    """(inverse depth [H, W] float32, mask [H, W] float32, reliable) of
+    the 16-bit map at ``path`` at ``resolution`` = (w, h), with this
+    image's ``depth_params`` entry or None (see the module docstring)."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"{path}: no inverse depth map for this "
+                                f"image in the depths folder")
+    raw = np.asarray(images.load(path))
+    if raw.ndim != 2:
+        raise ValueError(f"{path}: an inverse depth map has one channel, "
+                         f"got an array of shape {raw.shape}")
+    inv = raw.astype(np.float32) / np.float32(2 ** 16)
+    w, h = resolution
+    if inv.shape != (h, w):
+        inv = resize_bilinear(inv, w, h)
+    reliable = True
+    if params is not None:
+        scale, med = params["scale"], params["med_scale"]
+        if scale < 0.2 * med or scale > 5 * med:
+            reliable = False
+        if scale > 0:
+            inv = inv * np.float32(scale) + np.float32(params["offset"])
+    inv = np.maximum(inv, np.float32(0.0)).astype(np.float32)
+    mask = np.full((h, w), 1.0 if reliable else 0.0, np.float32)
+    return inv, mask, reliable
+
+
 def _resolution_for(orig_w, orig_h, resolution_flag, scale=1.0):
     """The loadCam resolution policy (utils/camera_utils.py:8-31):
     -1 → cap width at 1600 px; 1/2/4/8 → divide; other → target width."""
@@ -88,12 +164,15 @@ def nerfpp_norm(cameras: list[Camera]):
 def load_colmap_scene(source_path, *, images_dir="images", eval_split=True,
                       num_cams=10, resolution=-1, rain_cfg=None,
                       load_images=True, render_only=False,
-                      result_ply=None, rng=None) -> SceneData:
-    """readColmapSceneInfo (dataset_readers.py:118-227)."""
+                      result_ply=None, rng=None, depths="") -> SceneData:
+    """readColmapSceneInfo (dataset_readers.py:118-227). ``depths``: the
+    folder of inverse depth maps under the scene, "" for none (see the
+    module docstring)."""
     rng = rng or np.random.default_rng(0)
     source = Path(source_path)
     sparse = source / "sparse" / "0"
     cams, imgs = colmap_io.load_sparse(sparse)
+    dparams = depth_params(sparse) if depths else None
 
     cam_infos = []
     for iid in imgs:
@@ -124,8 +203,14 @@ def load_colmap_scene(source_path, *, images_dir="images", eval_split=True,
         else:
             res = _resolution_for(w, h, resolution)
             w, h = res
-        return Camera(uid=idx, image_name=name, R=R, T=T, fovx=fovx,
-                      fovy=fovy, image=image, width=w, height=h)
+        cam = Camera(uid=idx, image_name=name, R=R, T=T, fovx=fovx,
+                     fovy=fovy, image=image, width=w, height=h)
+        if depths:
+            (cam.invdepthmap, cam.depth_mask,
+             cam.depth_reliable) = load_inverse_depth(
+                source / depths / f"{name}.png", (w, h),
+                None if dparams is None else dparams.get(name))
+        return cam
 
     # every-Nth split with llffhold = n_cams / num_cams
     # (dataset_readers.py:133-140)
@@ -280,8 +365,11 @@ def load_scene(source_path, **kwargs) -> SceneData:
         cfg = {k: v for k, v in kwargs.items() if k not in blender_keys}
         return load_colmap_scene(source_path, **cfg)
     if (source / "transforms_train.json").exists():
+        if kwargs.get("depths"):
+            raise ValueError("depth maps (-d/--depths) are read for COLMAP "
+                             "scenes only")
         colmap_keys = {"images_dir", "num_cams", "resolution", "rain_cfg",
-                       "render_only", "result_ply"}
+                       "render_only", "result_ply", "depths"}
         cfg = {k: v for k, v in kwargs.items() if k not in colmap_keys}
         return load_blender_scene(source_path, **cfg)
     raise ValueError(f"Could not recognize scene type at {source_path}")

@@ -30,6 +30,18 @@ are summed to their owners by kernel B2 (ops.expand.reduce_instances) and
 go back to Gaussian order through the depth order. Both permutations are
 explicit scatters with unique indices, so nothing accumulates; the depth
 row takes no gradient, as in the reference (dgr/__init__.py:96).
+
+What the pack's depth row carries is one static option, ``depth_row``:
+the view depth z (``"z"``, the default), nothing (``None``: a zero row,
+as training reads no depth), or the inverse depth (``"inverse"``). The
+inverse-depth path is depth regularization's (graphdeco-inria/
+gaussian-splatting, 2024): the depth order still keys on the table's z,
+and then, once per Gaussian, row 9 of the depth-ordered table becomes
+1/z (0 for a culled Gaussian, which has no instance), so the
+compositor's depth channel is the inverse depth Σ T α / z. Its backward
+reduces ten rows with B2, the tenth the gradient of 1/z, and turns it
+into the gradient of z, -g / z², before the table's cotangent goes back
+to Gaussian order.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ class PackResiduals(NamedTuple):
     exc: torch.Tensor         # [N] int64 exclusive prefix sum of tiles
     tiles: torch.Tensor       # [N] int32 tiles per depth-ordered Gaussian
     perm: torch.Tensor        # [M] int64 tile-sorted → generated position
+    inv: torch.Tensor | None = None   # [N] 1/z in depth order ("inverse")
 
 
 def depth_order(table10, tiles_touched, rect_min, rect_wh,
@@ -82,6 +95,9 @@ def depth_order(table10, tiles_touched, rect_min, rect_wh,
     )
 
 
+DEPTH_ROWS = ("z", None, "inverse")   # the values of ``depth_row``
+
+
 def tile_sort(cols: torch.Tensor, keys: torch.Tensor,
               need_depth: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort the expanded instances by key; returns (pack [16, M], perm).
@@ -99,55 +115,78 @@ def tile_sort(cols: torch.Tensor, keys: torch.Tensor,
     return pack, perm
 
 
+def inverse_depth(table: torch.Tensor, tiles: torch.Tensor) -> torch.Tensor:
+    """1/z of the rows of a depth-ordered table whose Gaussian touches a
+    tile (z > 0.2 there: the near cull), 0 for the rest, [N]."""
+    vis = tiles > 0
+    z = torch.where(vis, table[tile_render.ROW_DEPTH], 1.0)
+    return torch.where(vis, torch.reciprocal(z), 0.0)
+
+
 def sorted_pack_fwd(table10, tiles_touched, rect_min, rect_wh,
                     tile_offset: int, grid_x: int, n_tiles: int,
-                    max_instances: int, need_depth: bool = True,
+                    max_instances: int, depth_row: str | None = "z",
                     on_stage: StageHook = no_stage_hook):
     """``sorted_pack`` without autograd, plus its residuals: ((pack,
     num_instances, overflow), PackResiduals).
 
     ``on_stage(name, value)`` is called after each stage with its result:
     "depth_sort" (DepthOrdered), "expand_B1" ((cols, keys)) and
-    "tile_sort_gather" (pack).
+    "tile_sort_gather" (pack). With ``depth_row="inverse"`` the
+    depth-ordered table's row 9, and so the pack's, is ``inverse_depth``
+    (see the module docstring).
     """
+    if depth_row not in DEPTH_ROWS:
+        raise ValueError(f"depth_row {depth_row!r} is none of {DEPTH_ROWS}")
     d = depth_order(table10, tiles_touched, rect_min, rect_wh, grid_x)
+    inv = None
+    if depth_row == "inverse":
+        inv = inverse_depth(d.table, d.tiles)
+        d.table[tile_render.ROW_DEPTH] = inv   # depth_order's own copy
     on_stage("depth_sort", d)
     cols, keys = expand_ops.expand_instances(
         d.table, d.tiles, d.offs, d.rect_w, d.rect_base, grid_x=grid_x,
         tile_offset=tile_offset, n_tiles=n_tiles,
         max_instances=max_instances)
     on_stage("expand_B1", (cols, keys))
-    pack, perm = tile_sort(cols, keys, need_depth)
+    pack, perm = tile_sort(cols, keys, depth_row is not None)
     on_stage("tile_sort_gather", pack)
     total = d.offs[-1]
     res = PackResiduals(order=d.order, exc=d.offs - d.tiles, tiles=d.tiles,
-                        perm=perm)
+                        perm=perm, inv=inv)
     return (pack, total, total > max_instances), res
 
 
 def sorted_pack_bwd(res: PackResiduals, d_pack: torch.Tensor,
                     on_stage: StageHook = no_stage_hook) -> torch.Tensor:
     """The VJP of ``sorted_pack`` in its table: [16, M] pack cotangent →
-    [10, N] table cotangent (zero depth row), in the pack cotangent's
-    dtype.
+    [10, N] table cotangent, in the pack cotangent's dtype. The depth row
+    is zero, but on the inverse-depth path (``res.inv`` set), where it is
+    the gradient of z: -g / z² from the gradient g of the pack's 1/z row,
+    as -g·(1/z)².
 
     ``on_stage("reduce_B2", (d_rank, exc, tiles, d_depth))`` reports kernel
     B2's inputs and output.
     """
     m = d_pack.shape[1]
     n = res.order.shape[0]
+    rows = tile_render.GRAD_ROWS if res.inv is None else \
+        tile_render.DEPTH_GRAD_ROWS
     # tile order → rank (generated) order: d_rank[:, perm[j]] = d_pack[:, j]
     # (B2 reads only the columns of kept instances, so the padding columns
     # past them need no masking)
-    d_rank = torch.empty((tile_render.GRAD_ROWS, m), dtype=d_pack.dtype,
-                         device=d_pack.device)
-    d_rank[:, res.perm] = d_pack[:tile_render.GRAD_ROWS]
+    d_rank = torch.empty((rows, m), dtype=d_pack.dtype, device=d_pack.device)
+    d_rank[:, res.perm] = d_pack[:rows]
     d_depth = expand_ops.reduce_instances(d_rank, res.exc, res.tiles)
     on_stage("reduce_B2", (d_rank, res.exc, res.tiles, d_depth))
+    if res.inv is not None:
+        # d(1/z)/dz = -(1/z)², as autograd's reciprocal takes it
+        d_z = -d_depth[tile_render.ROW_DEPTH] * (res.inv * res.inv)
+        d_depth = torch.cat([d_depth[:tile_render.ROW_DEPTH], d_z[None]])
     # depth order → Gaussian order: d_table[:, order[r]] = d_depth[:, r]
     d_table = torch.zeros((tile_render.KERNEL_ROWS, n), dtype=d_pack.dtype,
                           device=d_pack.device)
-    d_table[:tile_render.GRAD_ROWS, res.order] = d_depth
+    d_table[:rows, res.order] = d_depth
     return d_table
 
 
@@ -156,10 +195,10 @@ class _SortedPack(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table10, tiles_touched, rect_min, rect_wh, tile_offset,
-                grid_x, n_tiles, max_instances, need_depth, on_stage):
+                grid_x, n_tiles, max_instances, depth_row, on_stage):
         (pack, total, overflow), res = sorted_pack_fwd(
             table10, tiles_touched, rect_min, rect_wh, tile_offset, grid_x,
-            n_tiles, max_instances, need_depth, on_stage)
+            n_tiles, max_instances, depth_row, on_stage)
         ctx.res, ctx.on_stage = res, on_stage
         ctx.mark_non_differentiable(total, overflow)
         return pack, total, overflow
@@ -175,7 +214,7 @@ class _SortedPack(torch.autograd.Function):
 
 def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
                 tile_offset: int, grid_x: int, n_tiles: int,
-                max_instances: int, need_depth: bool = True,
+                max_instances: int, depth_row: str | None = "z",
                 on_stage: StageHook = no_stage_hook):
     """Tile-sorted [16, M] instance pack for ops.tile_render.
 
@@ -188,7 +227,9 @@ def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
       tile_offset: global tile id of local tile 0. Every rect must lie in
         the owned tiles [tile_offset, tile_offset + n_tiles).
       grid_x, n_tiles, max_instances: grid config and instance capacity M.
-      need_depth: False zeroes the pack's depth row.
+      depth_row: what the pack's depth row carries (``DEPTH_ROWS``): z,
+        zeros (None), or 1/z, which takes a gradient ("inverse": the
+        inverse-depth path of the module docstring).
       on_stage: called with each forward stage's result (see
         ``sorted_pack_fwd``) and, in the backward, with B2's
         (see ``sorted_pack_bwd``).
@@ -198,7 +239,7 @@ def sorted_pack(table10, tiles_touched, rect_min, rect_wh,
     """
     return _SortedPack.apply(table10, tiles_touched, rect_min, rect_wh,
                              tile_offset, grid_x, n_tiles, max_instances,
-                             need_depth, on_stage)
+                             depth_row, on_stage)
 
 
 def tile_ranges(rect_min, rect_wh, visible, grid_x: int, n_tiles: int,

@@ -6,6 +6,9 @@ Port of rain_tpu/ops/losses.py, with the reference formulas:
   C1=0.01², C2=0.03²                            (utils/loss_utils.py:12-52)
 - psnr: 20·log10(1/sqrt(mse)) per image        (utils/image_utils.py:6-8)
 - training loss: (1-λ)·L1 + λ·(1-SSIM), λ=0.2  (train.py:114)
+- depth L1: mean(|(D - D̂)·m|) of the rendered inverse depth D against
+  the target D̂ under the mask m (graphdeco-inria/gaussian-splatting's
+  2024 train.py, depth regularization), added with its weight
 
 The SSIM map follows the images' device, as every kernel wrapper does:
 
@@ -255,3 +258,22 @@ def masked_training_loss(image, gt, real_w, real_h,
     ssim_v = torch.sum(sm * mask[None]) / n_pix
     loss = (1.0 - lambda_dssim) * ll1 + lambda_dssim * (1.0 - ssim_v)
     return loss, ll1
+
+
+def depth_l1(inv_depth, target, mask, real_wh=None):
+    """The depth term's L1 (upstream train.py: ``torch.abs((invDepth -
+    mono_invdepth) * depth_mask).mean()``): ``inv_depth`` the rendered
+    [H, W] inverse depth, ``target`` and ``mask`` [H, W]. With ``real_wh``
+    = (w, h) (ints or 0-d int32 device tensors) the images are a tile
+    bucket's, ``target`` and ``mask`` zero beyond the true size, and the
+    mean is over the true pixels, as ``masked_training_loss``'s."""
+    diff = torch.abs((inv_depth - target) * mask)
+    if real_wh is None:
+        return diff.mean()
+    bh, bw = inv_depth.shape[-2], inv_depth.shape[-1]
+    dev = inv_depth.device
+    region = ((torch.arange(bh, device=dev) < real_wh[1])[:, None] &
+              (torch.arange(bw, device=dev) < real_wh[0])[None, :])
+    n_pix = device_mod.scalar(real_wh[1], torch.float32, dev) * \
+        device_mod.scalar(real_wh[0], torch.float32, dev)
+    return torch.sum(diff * region) / n_pix

@@ -58,7 +58,8 @@ BACKWARD_STAGES = ("loss_bwd", "composite_bwd_B4", "reduce_B2")
 
 class RenderOutput(NamedTuple):
     render: torch.Tensor        # [3, H, W] color (background applied)
-    depth: torch.Tensor         # [1, H, W] alpha-weighted depth
+    depth: torch.Tensor         # [1, H, W] alpha-weighted depth (inverse
+    #                             depth with depth_row "inverse")
     alpha: torch.Tensor         # [H, W] accumulated alpha
     final_t: torch.Tensor       # [H, W] final transmittance
     radii: torch.Tensor         # [N] int32 (visibility_filter = radii > 0)
@@ -70,11 +71,14 @@ class RenderOutput(NamedTuple):
 def render_tiles(table10: torch.Tensor, tiles_touched: torch.Tensor,
                  rect_min: torch.Tensor, rect_wh: torch.Tensor, *,
                  tile_offset: int, grid_x: int, n_tiles: int,
-                 max_instances: int, need_depth: bool = True,
+                 max_instances: int, depth_row: str | None = "z",
                  on_stage: binning_ops.StageHook = binning_ops.no_stage_hook):
     """Bin and composite the tiles [tile_offset, tile_offset + n_tiles) of
     the grid: the whole image (offset 0) or a band of tile rows
-    (parallel.sharding).
+    (parallel.sharding). ``depth_row`` (static; ops.binning.DEPTH_ROWS)
+    sets the depth channel: the α-weighted depth ("z"), zero (None), or
+    the inverse depth Σ T α / z, which takes a gradient ("inverse":
+    ops.binning's inverse-depth path and B4's depth variant).
 
     ``table10`` [10, N] holds the Gaussians' attribute rows
     (tile_render.pack_rows) and ``tiles_touched``, ``rect_min`` and
@@ -86,13 +90,14 @@ def render_tiles(table10: torch.Tensor, tiles_touched: torch.Tensor,
     """
     pack, num_instances, overflow = binning_ops.sorted_pack(
         table10, tiles_touched, rect_min, rect_wh, tile_offset, grid_x,
-        n_tiles, max_instances, need_depth, on_stage)
+        n_tiles, max_instances, depth_row, on_stage)
     tile_start, tile_end = binning_ops.tile_ranges(
         rect_min, rect_wh, tiles_touched > 0, grid_x, n_tiles, tile_offset,
         max_instances)
     on_stage("tile_ranges", (tile_start, tile_end))
     tiles = tile_render.composite(pack, tile_start, tile_end, tile_offset,
-                                  grid_x, on_stage)
+                                  grid_x, on_stage,
+                                  depth=depth_row == "inverse")
     on_stage("composite_B3", tiles)
     return tiles, num_instances, overflow
 
@@ -166,22 +171,26 @@ def render(means3d, scales_act, quats_act, opacity_act, shs, alive,
         colors_override=colors_override, cov3d_override=cov3d_override)
     return _render_prepared(
         prep, width=width, height=height, bg=bg,
-        max_instances=max_instances, xy_tap=xy_tap, need_depth=need_depth,
-        on_stage=on_stage)
+        max_instances=max_instances, xy_tap=xy_tap,
+        depth_row="z" if need_depth else None, on_stage=on_stage)
 
 
 def render_params(params: gmod.GaussianParams, alive: torch.Tensor, *,
                   camera: dict, width: int, height: int, sh_degree: int,
                   bg: torch.Tensor, low_pass=0.3, scale_modifier=1.0,
                   max_instances: int, xy_tap: torch.Tensor | None = None,
-                  need_depth: bool = True, render_wh: tuple | None = None,
+                  depth_row: str | None = "z",
+                  render_wh: tuple | None = None,
                   on_stage: binning_ops.StageHook = binning_ops.no_stage_hook
                   ) -> RenderOutput:
     """``render`` from the raw parameters (model.gaussians.GaussianParams,
     differentiable) through ops.preprocess: on the card one forward and
     one backward kernel from the raw leaves to the screen quantities; on
     the CPU gaussians.activate followed by ``render``'s preprocess, the
-    same ops. The other arguments are ``render``'s."""
+    same ops. ``depth_row`` is ``render_tiles``' (``render``'s need_depth
+    False is None; with "inverse" the output's ``depth`` is the
+    differentiable inverse depth). The other arguments are
+    ``render``'s."""
     grid_x, grid_y, rw, rh = _grids(width, height, render_wh)
     prep = prep_ops.preprocess(
         params, alive, sh_degree=sh_degree, camera=camera, width=rw,
@@ -189,14 +198,14 @@ def render_params(params: gmod.GaussianParams, alive: torch.Tensor, *,
         scale_modifier=scale_modifier)
     return _render_prepared(
         prep, width=width, height=height, bg=bg,
-        max_instances=max_instances, xy_tap=xy_tap, need_depth=need_depth,
+        max_instances=max_instances, xy_tap=xy_tap, depth_row=depth_row,
         on_stage=on_stage)
 
 
 def _render_prepared(
         prep: proj_ops.Preprocessed, *, width: int, height: int,
         bg: torch.Tensor, max_instances: int,
-        xy_tap: torch.Tensor | None = None, need_depth: bool = True,
+        xy_tap: torch.Tensor | None = None, depth_row: str | None = "z",
         on_stage: binning_ops.StageHook = binning_ops.no_stage_hook
         ) -> RenderOutput:
     """The render after its preprocess: ``on_stage("preprocess", prep)``,
@@ -212,7 +221,7 @@ def _render_prepared(
     tiles, num_instances, overflow = render_tiles(
         table10, prep.tiles_touched, prep.rect_min, prep.rect_wh,
         tile_offset=0, grid_x=grid_x, n_tiles=grid_x * grid_y,
-        max_instances=max_instances, need_depth=need_depth,
+        max_instances=max_instances, depth_row=depth_row,
         on_stage=on_stage)
 
     img = assemble_image(tiles, grid_x, grid_y, height, width)

@@ -44,16 +44,25 @@ to pixels); these are the plain copies of ``csrc/composite_cull.cuh``.
 Both only skip pairs that the rules above skip, so the plain versions
 walk every pair and still equal the kernels bit for bit.
 
+The depth variant of B4 (``depth=True``: kernel
+``composite_depth_bwd_kernel`` of the same source) also reads the
+cotangent g_D of the depth channel, which the pack's row 9 then feeds
+with each Gaussian's inverse depth d = 1/z (ops.binning): the channel is
+one more colour with no background term, so c·g gains d·g_D in
+dL/dalpha and in the seed C·g, and row 9 of its output is Σ w·g_D, the
+gradient of d. The default variant leaves g_D unread and row 9 zero.
+
 B4 sums, per instance over the tile's 256 pixels, the moments of dpow =
 gd·op (Σ dpow·dx, Σ dpow·dy, Σ dpow·dx², Σ dpow·dy², Σ dpow·dx·dy), Σ gd
-and Σ w·g_rgb, in a fixed order (``_pixel_sum``): 8 partial sums,
-partial s adding the pixels of threads s, s + 8, ..., s + 248 in turn
-from +0.0, then a tree over the 8 (s + 4, s + 2, s + 1); the conic and
-position rows follow from the moments (d a = -Σ dpow·dx²/2, d xg = -(a Σ
-dpow·dx + b Σ dpow·dy), ...). Pixels that did not composite the instance
-add +0, which the kernel skips; a sum that starts at +0 is never -0, so
-that is exact. B4 writes every element of its [16, M] output, zeros
-included, so the wrapper allocates it with ``torch.empty``.
+and Σ w·g_rgb (and, in the depth variant, Σ w·g_D), in a fixed order
+(``_pixel_sum``): 8 partial sums, partial s adding the pixels of threads
+s, s + 8, ..., s + 248 in turn from +0.0, then a tree over the 8 (s + 4,
+s + 2, s + 1); the conic and position rows follow from the moments (d a
+= -Σ dpow·dx²/2, d xg = -(a Σ dpow·dx + b Σ dpow·dy), ...). Pixels
+that did not composite the instance add +0, which the kernel skips; a
+sum that starts at +0 is never -0, so that is exact. B4 writes every
+element of its [16, M] output, zeros included, so the wrapper allocates
+it with ``torch.empty``.
 """
 
 from __future__ import annotations
@@ -83,6 +92,7 @@ ROW_A, ROW_B, ROW_C, ROW_XG, ROW_YG, ROW_OP, ROW_R, ROW_G, ROW_B2, \
 PACK_ROWS = 16
 KERNEL_ROWS = 10         # rows the compositor reads (ROW_A .. ROW_DEPTH)
 GRAD_ROWS = 9            # rows that take a gradient (ROW_A .. ROW_B2)
+DEPTH_GRAD_ROWS = 10     # the depth variant's: ROW_A .. ROW_DEPTH
 SPLIT = 8                # partial sums per instance in B4's reduction
 # The cull of csrc/composite_cull.cuh (see there for the derivation).
 FLOOR_MARGIN = 1e-3      # the power floor's margin below ln(alpha_min/op)
@@ -290,21 +300,27 @@ def _check_tiles(name, t, pack, n_tiles):
 
 def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
                        ends: torch.Tensor, toff: int, grid_x: int,
-                       tiles: torch.Tensor,
-                       g_tiles: torch.Tensor) -> torch.Tensor:
+                       tiles: torch.Tensor, g_tiles: torch.Tensor,
+                       depth: bool = False) -> torch.Tensor:
     """Per-instance gradients of the compositor.
 
     Args: ``composite_forward``'s (pack, starts, ends, toff, grid_x), its
       output ``tiles`` and the cotangent ``g_tiles`` [n_tiles, 256, 8]
-      (only channels r, g, b and final_T are read).
+      (only channels r, g, b and final_T are read, and depth with
+      ``depth``).
+      depth: the depth variant (see the module docstring): the depth
+        channel's cotangent enters dL/dalpha, and row ROW_DEPTH takes the
+        gradient of the pack's row 9.
 
     Returns d_pack [16, M] float32 in the pack's row layout: rows ROW_A ..
     ROW_B2 hold the gradients of conic a/b/c, xg, yg, opacity and rgb, the
-    depth and padding rows are zero, and so are the columns of instances
-    no pixel composited. The ranges must be ascending and disjoint, as
+    depth row that of row 9 with ``depth`` (else zero), the padding rows
+    are zero, and so are the columns of instances no pixel composited.
+    The ranges must be ascending and disjoint, as
     ``ops.binning.tile_ranges`` makes them: kernel B4 zeroes the columns
     between and after them by that order. A CPU pack runs the plain
-    version; a CUDA pack launches kernel B4.
+    version; a CUDA pack launches kernel B4 (its depth variant with
+    ``depth``, counted in ``launches_depth`` as well as ``launches``).
     """
     _check(pack, starts, ends)
     n_tiles = starts.shape[0]
@@ -312,11 +328,13 @@ def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
     _check_tiles("g_tiles", g_tiles, pack, n_tiles)
     if pack.device.type == "cpu":
         return composite_backward_torch(pack, starts, ends, toff, grid_x,
-                                        tiles, g_tiles)
+                                        tiles, g_tiles, depth)
     if pack.device.type != "cuda":
         raise ValueError(f"no compositor for device {pack.device}")
     d_pack = torch.empty_like(pack)     # B4 writes every element
-    f = _build.kernel("tile_render_bwd", "rain_composite_backward", (
+    entry = "rain_composite_backward_depth" if depth else \
+        "rain_composite_backward"
+    f = _build.kernel("tile_render_bwd", entry, (
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p))
@@ -325,10 +343,12 @@ def composite_backward(pack: torch.Tensor, starts: torch.Tensor,
                   int(grid_x), tiles.data_ptr(), g_tiles.data_ptr(),
                   d_pack.data_ptr())
     composite_backward.launches += 1
+    composite_backward.launches_depth += depth
     return d_pack
 
 
 composite_backward.launches = 0
+composite_backward.launches_depth = 0
 
 
 def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
@@ -351,15 +371,15 @@ def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
 
 def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
                              ends: torch.Tensor, toff: int, grid_x: int,
-                             tiles: torch.Tensor,
-                             g_tiles: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of kernel B4 (same contract as
-    ``composite_backward``), on any device: vectorised over tiles and
-    pixels, looping over the position k in each tile's range, with the
-    kernel's arithmetic and reduction order (``_pixel_sum``), so the two
-    agree bit for bit. The gradients are written by hand, not taken by
-    autograd through the forward: the 0.99 clamp passes the gradient here,
-    as in the reference."""
+                             tiles: torch.Tensor, g_tiles: torch.Tensor,
+                             depth: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of kernel B4 and of its depth variant
+    (same contract as ``composite_backward``), on any device: vectorised
+    over tiles and pixels, looping over the position k in each tile's
+    range, with the kernel's arithmetic and reduction order
+    (``_pixel_sum``), so the two agree bit for bit. The gradients are
+    written by hand, not taken by autograd through the forward: the 0.99
+    clamp passes the gradient here, as in the reference."""
     dev = pack.device
     n_tiles = starts.shape[0]
     m = pack.shape[1]
@@ -368,18 +388,23 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
         return d_pack
     px, py = _pixel_coords(n_tiles, toff, grid_x, dev)
     start = starts.to(torch.int64)
+    rows = DEPTH_GRAD_ROWS if depth else GRAD_ROWS
     g_r, g_g, g_b = g_tiles[..., CH_R], g_tiles[..., CH_G], g_tiles[..., CH_B]
+    g_d = g_tiles[..., CH_DEPTH]
     bg = tiles[..., CH_T] * g_tiles[..., CH_T]
     last = tiles[..., CH_NCONTRIB].to(torch.int64)
     rest = tiles[..., CH_R] * g_r + tiles[..., CH_G] * g_g + \
         tiles[..., CH_B] * g_b
+    if depth:
+        rest = rest + tiles[..., CH_DEPTH] * g_d
     T = torch.ones_like(bg)
     n_walk = last.max(dim=1).values
     zero = torch.zeros((), device=dev)
     last_col = max(m - 1, 0)
     for k in range(int(n_walk.max())):
         cols = torch.clamp(start + k, max=last_col)
-        a, b, c, xg, yg, op, cr, cg, cb = pack[:GRAD_ROWS, cols][:, :, None]
+        a, b, c, xg, yg, op, cr, cg, cb, d = \
+            pack[:KERNEL_ROWS, cols][:, :, None]
         dx = xg - px
         dy = yg - py
         power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
@@ -387,6 +412,8 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
         alpha = torch.clamp(op * G, max=ALPHA_CLAMP)
         active = (k < last) & (power <= 0.0) & (alpha >= ALPHA_MIN)
         cgd = g_r * cr + g_g * cg + g_b * cb
+        if depth:
+            cgd = cgd + g_d * d
         om = 1.0 - alpha
         w = alpha * T
         rest = torch.where(active, rest - w * cgd, rest)
@@ -395,10 +422,12 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
         gd = dalpha * G
         dpow = gd * op
         ex, ey = dpow * dx, dpow * dy
-        contrib = torch.stack([ex, ey, ex * dx, ey * dy, ex * dy, gd,
-                               w * g_r, w * g_g, w * g_b], dim=-1)
-        contrib = torch.where(active[..., None], contrib, zero)
-        # the moments Σ dpow·(dx, dy, dx², dy², dx·dy), then d op and d rgb
+        terms = [ex, ey, ex * dx, ey * dy, ex * dy, gd,
+                 w * g_r, w * g_g, w * g_b] + ([w * g_d] if depth else [])
+        contrib = torch.where(active[..., None], torch.stack(terms, dim=-1),
+                              zero)
+        # the moments Σ dpow·(dx, dy, dx², dy², dx·dy), then d op, d rgb
+        # (and d of row 9)
         sums = _pixel_sum(contrib)
         mx, my, mxx, myy, mxy = sums[:, :5].unbind(-1)
         a, b, c = a[:, 0], b[:, 0], c[:, 0]
@@ -407,7 +436,7 @@ def composite_backward_torch(pack: torch.Tensor, starts: torch.Tensor,
             -(a * mx + b * my), -(c * my + b * mx)], dim=-1), sums[:, 5:]],
             dim=-1)
         walked = k < n_walk
-        d_pack[:GRAD_ROWS, cols[walked]] = grads[walked].T
+        d_pack[:rows, cols[walked]] = grads[walked].T
     return d_pack
 
 
@@ -415,10 +444,11 @@ class _Composite(torch.autograd.Function):
     """The compositor with kernel B3 forward and kernel B4 backward."""
 
     @staticmethod
-    def forward(ctx, pack, starts, ends, toff, grid_x, on_stage):
+    def forward(ctx, pack, starts, ends, toff, grid_x, on_stage, depth):
         tiles = composite_forward(pack, starts, ends, toff, grid_x)
         ctx.save_for_backward(pack, starts, ends, tiles)
         ctx.toff, ctx.grid_x, ctx.on_stage = toff, grid_x, on_stage
+        ctx.depth = depth
         return tiles
 
     @staticmethod
@@ -428,19 +458,22 @@ class _Composite(torch.autograd.Function):
         pack, starts, ends, tiles = ctx.saved_tensors
         g_tiles = g_tiles.contiguous()
         d_pack = composite_backward(pack, starts, ends, ctx.toff,
-                                    ctx.grid_x, tiles, g_tiles)
+                                    ctx.grid_x, tiles, g_tiles, ctx.depth)
         on_stage("composite_bwd_B4",
                  ((pack.detach(), starts, ends, ctx.toff, ctx.grid_x,
                    tiles.detach(), g_tiles), d_pack))
-        return d_pack, None, None, None, None, None
+        return d_pack, None, None, None, None, None, None
 
 
 def composite(pack: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
-              toff: int, grid_x: int, on_stage: StageHook = no_stage_hook
-              ) -> torch.Tensor:
+              toff: int, grid_x: int, on_stage: StageHook = no_stage_hook,
+              depth: bool = False) -> torch.Tensor:
     """``composite_forward`` (kernel B3) as an autograd Function whose
     backward is ``composite_backward`` (kernel B4): only the pack takes a
-    gradient, and only through the r, g, b and final_T channels. In the
-    backward, ``on_stage("loss_bwd", g_tiles)`` is called on entry and
-    ``on_stage("composite_bwd_B4", (B4's args, d_pack))`` after B4."""
-    return _Composite.apply(pack, starts, ends, toff, grid_x, on_stage)
+    gradient, and only through the r, g, b and final_T channels (and the
+    depth channel, into the pack's row 9, with ``depth``: B4's depth
+    variant). In the backward, ``on_stage("loss_bwd", g_tiles)`` is called
+    on entry and ``on_stage("composite_bwd_B4", (B4's args, d_pack))``
+    after B4."""
+    return _Composite.apply(pack, starts, ends, toff, grid_x, on_stage,
+                            depth)

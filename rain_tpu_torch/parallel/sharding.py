@@ -196,6 +196,16 @@ def gt_band(gt_image: torch.Tensor, layout: BandLayout,
 
 
 # -- the step ---------------------------------------------------------------
+def refuse_depth(depth) -> None:
+    """ValueError for depth inputs: the sharded step has no depth term
+    (train.step's ``DepthTarget``), and dropping one would train another
+    objective without a word."""
+    if depth is not None:
+        raise ValueError("the sharded step has no depth term: depth "
+                         "regularization runs on one device "
+                         "(train.step.train_step's depth)")
+
+
 def make_sharded_train_step(group=None, *, width: int, height: int,
                             sh_degree: int, max_instances_per_shard: int,
                             lambda_dssim: float = 0.2,
@@ -204,7 +214,8 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
     when None), for images of width x height.
 
     Returns ``step(state, opt, camera, gt_image, bg, low_pass, xyz_lr,
-    opt_leaves, on_stage=no_stage_hook) -> (state, opt, ShardedAux)``, the
+    opt_leaves, on_stage=no_stage_hook, depth=None) -> (state, opt,
+    ShardedAux)``, the
     counterpart of train.step.train_step, which every rank of the group
     calls together. ``state`` and ``opt`` are this rank's shards
     (``shard_state``, ``shard_opt``; ``n_alive`` the whole state's) and come
@@ -215,7 +226,8 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
     ``xyz_lr`` and the four ``opt_leaves`` (f32); train.compiled captures
     the step on an NCCL group with them as graph inputs.
     ``on_stage(name, value)`` sees the band's stages of ops.render.STAGES
-    from "depth_sort" on, and its BACKWARD_STAGES.
+    from "depth_sort" on, and its BACKWARD_STAGES. ``depth`` other than
+    None raises ValueError (``refuse_depth``).
     """
     world = distributed.world_size(group)
     rank = distributed.rank(group)
@@ -232,7 +244,9 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
 
     def step(state: gmod.GaussianState, opt: adam_mod.AdamState, camera,
              gt_image, bg, low_pass, xyz_lr, opt_leaves,
-             on_stage: binning_ops.StageHook = binning_ops.no_stage_hook):
+             on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+             depth=None):
+        refuse_depth(depth)
         dev = state.params.xyz.device
         cap_sh = state.capacity
         alive = shard_alive(state, rank)
@@ -280,7 +294,7 @@ def make_sharded_train_step(group=None, *, width: int, height: int,
             band, num_inst, ovf = render_ops.render_tiles(
                 table10, tiles, rect_min, rect_wh, tile_offset=toff,
                 grid_x=grid_x, n_tiles=n_tiles, max_instances=m,
-                need_depth=False,   # the loss reads no depth
+                depth_row=None,   # the loss reads no depth
                 on_stage=on_stage)
             img = render_ops.assemble_image(band, grid_x, n_rows,
                                             n_rows * TILE, grid_x * TILE)

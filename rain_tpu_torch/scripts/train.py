@@ -5,7 +5,10 @@ Usage: python -m rain_tpu_torch.scripts.train -s <scene> [--ours_new ...]
        [--device cpu]
 
 The flags are rain_tpu's (``config.build_parser``) plus ``--device``
-(default: the CUDA card; without one it raises unless ``--device cpu``).
+(default: the CUDA card; without one it raises unless ``--device cpu``)
+and the port's depth flags (``-d/--depths``: a COLMAP scene's folder of
+16-bit inverse depth maps, with ``--depth_l1_weight_init`` / ``_final``;
+data.dataset and train.trainer say how they are read and used).
 ``--device`` is not part of the configuration, so ``cfg_args.json`` keeps
 rain_tpu's keys and a configuration saved by either package loads in the
 other.
@@ -125,7 +128,7 @@ def main(argv=None):
         resolution=model.resolution,
         rain_cfg=rain,
         white_background=model.white_background,
-        rng=rng)
+        rng=rng, depths=model.depths)
     log_fn(f"cameras: {len(scene.train_cameras)} train / "
            f"{len(scene.test_cameras)} test; "
            f"init points: {scene.points.shape[0]}")

@@ -14,8 +14,11 @@ device inputs of the graph:
 
 - **Key.** ``train_key``: width, height, sh_degree, max_instances,
   lambda_dssim, update_densify_stats, the capacity and whether the step
-  is bucketed (``real_wh`` given); ``eval_key``: width, height, sh_degree,
-  max_instances and the capacity; ``sharded_key``: width, height,
+  is bucketed (``real_wh`` given), a ``TrainKey``; a step with the depth
+  term (``depth`` given) keys by the same fields in a ``DepthTrainKey``,
+  so its graph is its own and every other key is as it was;
+  ``eval_key``: width, height, sh_degree, max_instances and the
+  capacity; ``sharded_key``: width, height,
   sh_degree, the tier per shard, lambda_dssim, update_densify_stats, the
   world size, the rank and the shard's capacity (the sharded step of each
   key is made once, as rain_tpu/train/trainer.py:272-283 caches it);
@@ -44,20 +47,21 @@ device inputs of the graph:
   update_densify_stats is False) is the caller's input, as the eager step
   returns it. No call waits for the device.
 - **Per-call values.** ``low_pass``, ``xyz_lr``, ``scale_modifier``, the
-  four ``opt_cfg_leaves``, the round's six thresholds (f32), ``real_wh``
-  and ``state.n_alive`` (int32) are 0-d device tensors or numbers, filled
-  into their buffers either way; the camera, ground truth, background,
-  state, Adam state and split noise are copied. The reset copies in the
+  four ``opt_cfg_leaves``, the round's six thresholds, the depth term's
+  weight (f32), ``real_wh`` and ``state.n_alive`` (int32) are 0-d device
+  tensors or numbers, filled into their buffers either way; the camera,
+  ground truth, background, state, Adam state, the depth term's target
+  and mask and split noise are copied. The reset copies in the
   opacity alone, the one leaf it reads.
 - **The round's one read.** ``densify_and_prune`` returns what
   model.densify's does: it reads the round's packed info once (the
   round's only wait for the device, as rain_tpu's Trainer reads
   ``info.overflow`` once) and gives the new state a Python n_alive.
 - **Launch counters.** A replay adds to the launch counters of B1–B4,
-  of preprocess's two kernels, of the SSIM map's two and of Adam's
-  (``COUNTED``) the launches its capture recorded; the capture itself
-  adds none, and the warm-up counts as the eager step it is: one count
-  per call and kernel.
+  of preprocess's two kernels, of the SSIM map's two, of B4's depth
+  variant and of Adam's (``COUNTED``) the launches its capture
+  recorded; the capture itself adds none, and the warm-up counts as the
+  eager step it is: one count per call and kernel.
 - **Memory.** All graphs of one CompiledStep share one memory pool, and
   the graphs whose inputs have the same shapes share their input buffers.
   ``retire`` drops the graphs of keys whose capacity, or tier where the
@@ -123,12 +127,13 @@ from rain_tpu_torch.train import step as step_mod
 
 # the launch counters a replay adds to, (wrapper, attribute): B1–B4's,
 # preprocess's forward and backward, the SSIM map's forward and backward,
-# Adam's
+# B4's depth variant's (also counted in B4's), Adam's
 COUNTED = tuple((f, "launches") for f in (
     expand_ops.expand_instances, expand_ops.reduce_instances,
     tile_render.composite_forward, tile_render.composite_backward,
     prep_ops.preprocess_forward, prep_ops.preprocess_backward)) + (
     (loss_ops.ssim_map, "launches_fwd"), (loss_ops.ssim_map, "launches_bwd"),
+    (tile_render.composite_backward, "launches_depth"),
     (adam_mod.update, "launches"))
 CAMERA = ("world_view", "full_proj", "camera_center", "tanfovx", "tanfovy")
 OPT_LEAVES = ("feature_lr", "opacity_lr", "scaling_lr", "rotation_lr")
@@ -154,6 +159,22 @@ class TrainKey(NamedTuple):
     update_densify_stats: bool
     capacity: int
     bucketed: bool
+
+
+class DepthTrainKey(TrainKey):
+    """The key of a ``train_step`` with the depth term: TrainKey's fields
+    in a type of their own, which equals and hashes apart from the
+    TrainKey of the same fields (tuples would compare equal)."""
+    __slots__ = ()
+
+    def __eq__(self, other):
+        return type(other) is DepthTrainKey and tuple.__eq__(self, other)
+
+    def __ne__(self, other):
+        return not self == other
+
+    def __hash__(self):
+        return hash((DepthTrainKey, tuple(self)))
 
 
 class EvalKey(NamedTuple):
@@ -191,13 +212,15 @@ class ResetKey(NamedTuple):
 def train_key(state: gmod.GaussianState, *, width: int, height: int,
               sh_degree: int, max_instances: int, lambda_dssim: float = 0.2,
               update_densify_stats: bool = True,
-              real_wh=None) -> TrainKey:
+              real_wh=None, depth: bool = False):
     """The key of a ``train_step`` call: its static keywords, the
-    capacity and whether it is bucketed."""
-    return TrainKey(int(width), int(height), int(sh_degree),
-                    int(max_instances), float(lambda_dssim),
-                    bool(update_densify_stats), state.capacity,
-                    real_wh is not None)
+    capacity and whether it is bucketed; a DepthTrainKey with ``depth``
+    (a DepthTarget given), else a TrainKey."""
+    key = TrainKey(int(width), int(height), int(sh_degree),
+                   int(max_instances), float(lambda_dssim),
+                   bool(update_densify_stats), state.capacity,
+                   real_wh is not None)
+    return DepthTrainKey(*key) if depth else key
 
 
 def eval_key(state: gmod.GaussianState, *, width: int, height: int,
@@ -384,11 +407,14 @@ def _opt(take) -> adam_mod.AdamState:
 
 
 def _step_inputs(state, opt, camera, gt_image, bg, low_pass, xyz_lr,
-                 leaves, wh=()):
+                 leaves, wh=(), depth=None):
     """(values, dtypes) of a training step's inputs, in the order
     ``_step_args`` takes them back; n_alive, real_wh (``wh``) int32, the
-    rates f32."""
+    rates f32; then, with ``depth`` (a step.DepthTarget), its target and
+    mask and its weight (f32)."""
     f32, i32 = torch.float32, torch.int32
+    extra = () if depth is None else (
+        ([depth.inv_depth, depth.mask], None), ([depth.weight], f32))
     return _flat(
         (list(state.params), None),
         ([getattr(state, k) for k in gmod.STAT_FIELDS], None),
@@ -396,12 +422,13 @@ def _step_inputs(state, opt, camera, gt_image, bg, low_pass, xyz_lr,
         (list(opt.mu) + list(opt.nu) + [opt.step], None),
         ([camera[k] for k in CAMERA] + [gt_image, bg], None),
         ([low_pass, xyz_lr] + [leaves[k] for k in OPT_LEAVES], f32),
-        (list(wh), i32))
+        (list(wh), i32), *extra)
 
 
 def _step_args(buffers, n_wh: int) -> tuple:
     """(state, opt, camera, gt_image, bg, low_pass, xyz_lr, leaves, wh)
-    from the buffers of ``_step_inputs``."""
+    from the buffers of ``_step_inputs`` (a depth term's three, last,
+    are the caller's)."""
     take = _taker(buffers)
     st = _state(take, with_stats=True)
     op = _opt(take)
@@ -420,12 +447,16 @@ def _step_outputs(state, opt, aux) -> list:
 
 
 def _step_results(outputs, n_alive) -> tuple:
-    """(state, opt, (loss, l1, num_instances, instance_overflow)) from
-    ``_step_outputs``' list; the state's n_alive is ``n_alive``."""
+    """(state, opt, (loss, l1, num_instances, instance_overflow[,
+    inv_depth])) from ``_step_outputs``' list (the rendered inverse depth
+    after it in a step with the depth term); the state's n_alive is
+    ``n_alive``."""
     take = _taker(outputs)
     params = gmod.GaussianParams(*take(N_PARAMS))
     state = gmod.GaussianState(params, n_alive, *take(len(gmod.STAT_FIELDS)))
-    return state, _opt(take), take(4)
+    # the aux's 4 or 5 follow the leaves, statistics, moments and step
+    n_aux = len(outputs) - 3 * N_PARAMS - len(gmod.STAT_FIELDS) - 1
+    return state, _opt(take), take(n_aux)
 
 
 def _spanned(method):
@@ -541,14 +572,15 @@ class CompiledStep:
                    low_pass, xyz_lr, *, width: int, height: int,
                    sh_degree: int, max_instances: int, opt_cfg_leaves: dict,
                    lambda_dssim: float = 0.2,
-                   update_densify_stats: bool = True, real_wh=None):
+                   update_densify_stats: bool = True, real_wh=None,
+                   depth: step_mod.DepthTarget | None = None):
         """``step.train_step`` (same arguments but ``on_stage``, same
         results), replayed from the key's graph on the card."""
         key = train_key(state, width=width, height=height,
                         sh_degree=sh_degree, max_instances=max_instances,
                         lambda_dssim=lambda_dssim,
                         update_densify_stats=update_densify_stats,
-                        real_wh=real_wh)
+                        real_wh=real_wh, depth=depth is not None)
         self.train_keys.add(key)
         kw = dict(width=key.width, height=key.height,
                   sh_degree=key.sh_degree, max_instances=key.max_instances,
@@ -558,24 +590,27 @@ class CompiledStep:
         if dev.type == "cpu":
             return step_mod.train_step(
                 state, opt, camera, gt_image, bg, low_pass, xyz_lr,
-                opt_cfg_leaves=opt_cfg_leaves, real_wh=real_wh, **kw)
+                opt_cfg_leaves=opt_cfg_leaves, real_wh=real_wh, depth=depth,
+                **kw)
 
         wh = tuple(real_wh or ())
         xs, dtypes = _step_inputs(state, opt, camera, gt_image, bg, low_pass,
-                                  xyz_lr, opt_cfg_leaves, wh)
+                                  xyz_lr, opt_cfg_leaves, wh, depth)
 
         def run(b, on_stage):
             st, op, cam, gt, bgv, lp, lr, leaves, rwh = _step_args(b, len(wh))
-            return _step_outputs(*step_mod.train_step(
+            target = None if depth is None else step_mod.DepthTarget(*b[-3:])
+            st, op, aux = step_mod.train_step(
                 st, op, cam, gt, bgv, lp, lr, opt_cfg_leaves=leaves,
-                real_wh=rwh or None, on_stage=on_stage, **kw))
+                real_wh=rwh or None, on_stage=on_stage, depth=target, **kw)
+            return _step_outputs(st, op, aux) + (
+                [] if depth is None else [aux.inv_depth])
 
-        new_state, new_opt, (loss, l1, n_inst, overflow) = _step_results(
+        new_state, new_opt, aux = _step_results(
             self._run(key, run, xs, dtypes, dev), state.n_alive)
         self.last_step_key = key
-        return new_state, new_opt, step_mod.StepAux(
-            loss=loss, l1=l1, num_instances=n_inst,
-            instance_overflow=overflow, n_alive=state.n_alive)
+        return new_state, new_opt, step_mod.StepAux(*aux[:4], state.n_alive,
+                                                    *aux[4:])
 
     @_spanned
     def sharded_train_step(self, state: gmod.GaussianState,
@@ -585,12 +620,16 @@ class CompiledStep:
                            height: int, sh_degree: int,
                            max_instances_per_shard: int,
                            lambda_dssim: float = 0.2,
-                           update_densify_stats: bool = True, group=None):
+                           update_densify_stats: bool = True, group=None,
+                           depth=None):
         """The step of ``sharding.make_sharded_train_step(group, ...)``
         (same arguments but ``on_stage``, same results) on this rank's
         shard, made once per key; on an NCCL group with the state on the
         card replayed from the key's graph, with its collectives inside.
-        Every rank of the group calls it together, with the same key."""
+        Every rank of the group calls it together, with the same key.
+        The sharded step has no depth term: ``depth`` other than None
+        raises ValueError."""
+        sharding.refuse_depth(depth)
         key = sharded_key(state, width=width, height=height,
                           sh_degree=sh_degree,
                           max_instances_per_shard=max_instances_per_shard,

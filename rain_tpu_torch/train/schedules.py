@@ -8,6 +8,9 @@ A copy of rain_tpu/train/schedules.py (pure Python):
 - c2f_low_pass: max(H*W / N / (9*pi), 0.3), optionally capped, recomputed
   every c2f_every_step iters while densification is on (train.py:95-107)
 - xyz LR iteration offset by warmup under ours_new (train.py:73-77)
+- depth_l1_weight: the depth term's weight, get_expon_lr from
+  depth_l1_weight_init to _final over the run's iterations (upstream
+  graphdeco-inria/gaussian-splatting's 2024 train.py; port only)
 """
 
 from __future__ import annotations
@@ -48,6 +51,15 @@ def xyz_lr_at(iteration: int, opt_cfg, spatial_lr_scale: float,
             return sched(1)
         return sched(iteration - warmup_iter)
     return sched(iteration)
+
+
+def depth_l1_weight(iteration: int, opt_cfg) -> float:
+    """The depth term's weight at ``iteration``: log-linear from
+    ``opt_cfg.depth_l1_weight_init`` to ``_final`` over
+    ``opt_cfg.iterations`` (upstream's ``depth_l1_weight``)."""
+    return get_expon_lr(opt_cfg.depth_l1_weight_init,
+                        opt_cfg.depth_l1_weight_final,
+                        max_steps=opt_cfg.iterations)(iteration)
 
 
 def sh_degree_at(iteration: int, max_degree: int, ours: bool = False) -> int:

@@ -6,6 +6,13 @@ train.py:71-147) and ``eval_render`` (:102-116). Gradients with respect
 to the screen-space tap are taken with the parameter gradients, in one
 ``torch.autograd.grad``, to feed the densification statistics (the
 reference's screenspace_points.grad).
+
+Depth regularization (graphdeco-inria/gaussian-splatting's 2024 update,
+from Kerbl et al., SIGGRAPH 2024), off by default: given a
+``DepthTarget``, the render's depth channel is the inverse depth
+D = Σ T α / z (ops.render's ``depth_row`` "inverse") and the loss gains
+w·mean(|(D - D̂)·m|) (ops.losses.depth_l1); its gradient reaches the
+opacities, the screen quantities and, through 1/z, the means.
 """
 
 from __future__ import annotations
@@ -37,6 +44,19 @@ class StepAux(NamedTuple):
     num_instances: torch.Tensor   # 0-d int64 (may exceed max_instances)
     instance_overflow: torch.Tensor  # 0-d bool
     n_alive: int                  # the input state's (int or 0-d tensor)
+    inv_depth: torch.Tensor | None = None  # [H, W] rendered inverse depth
+    #                                        (a step with a DepthTarget)
+
+
+class DepthTarget(NamedTuple):
+    """The depth term's inputs: the target inverse depth D̂ and its mask m,
+    [H, W] f32 each on the step's device (ones, or zeros for a map that is
+    not reliable; zero beyond the true size in a bucket), and the weight
+    w(t), a number or a 0-d f32 device tensor (``schedules.
+    depth_l1_weight``)."""
+    inv_depth: torch.Tensor
+    mask: torch.Tensor
+    weight: object
 
 
 # 1/20 in f32: rain_tpu's jitted ``feature_lr / 20.0``
@@ -88,7 +108,8 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
                opt_cfg_leaves: dict, lambda_dssim: float = 0.2,
                update_densify_stats: bool = True,
                real_wh: tuple | None = None,
-               on_stage: binning_ops.StageHook = binning_ops.no_stage_hook):
+               on_stage: binning_ops.StageHook = binning_ops.no_stage_hook,
+               depth: DepthTarget | None = None):
     """One optimisation step on one camera; runs on the device of ``state``.
 
     Every value that changes from call to call may be a 0-d device tensor,
@@ -103,6 +124,10 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
       masked to the true size.
     on_stage(name, value) is called after each of ops.render.STAGES, of
       ops.render.BACKWARD_STAGES and of TRAIN_STAGES with its result.
+    depth: optional DepthTarget, the depth term (see the module
+      docstring). Whether it is given is static (a key of its own in
+      train.compiled); its weight may be a 0-d device tensor. The
+      returned aux then holds the rendered inverse depth.
 
     Returns (state, opt, StepAux) as new tensors; the inputs are left
     untouched.
@@ -119,7 +144,8 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
             camera=camera, width=width, height=height,
             sh_degree=sh_degree, bg=bg, low_pass=low_pass,
             max_instances=max_instances, xy_tap=tap,
-            need_depth=False,   # the training loss never reads depth
+            # the colour loss reads no depth; the depth term 1/z
+            depth_row=None if depth is None else "inverse",
             render_wh=real_wh, on_stage=on_stage)
         if real_wh is None:
             loss, l1 = loss_ops.training_loss(out.render, gt_image,
@@ -127,6 +153,9 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
         else:
             loss, l1 = loss_ops.masked_training_loss(
                 out.render, gt_image, real_wh[0], real_wh[1], lambda_dssim)
+        if depth is not None:
+            loss = loss + depth.weight * loss_ops.depth_l1(
+                out.depth[0], depth.inv_depth, depth.mask, real_wh)
         on_stage("loss", (loss, l1))
         *grads, tap_grad = torch.autograd.grad(loss, [*params, tap])
     grads = gmod.GaussianParams(*grads)
@@ -146,7 +175,8 @@ def train_step(state: gmod.GaussianState, opt: adam_mod.AdamState,
 
     aux = StepAux(loss=loss.detach(), l1=l1.detach(),
                   num_instances=out.num_instances,
-                  instance_overflow=out.overflow, n_alive=state.n_alive)
+                  instance_overflow=out.overflow, n_alive=state.n_alive,
+                  inv_depth=None if depth is None else out.depth[0].detach())
     return state, new_opt, aux
 
 

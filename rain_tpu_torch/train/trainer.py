@@ -35,6 +35,14 @@ on the shard. Reports and saves gather the state (a
 collective every rank joins); only rank 0 renders, through the same
 CompiledStep's eval_render, logs to TensorBoard and writes files, as
 rain_tpu's process 0.
+
+Depth regularization (port only; graphdeco-inria/gaussian-splatting's
+2024 train.py): with ``model.depths`` set, each step on a camera that
+carries a reliable inverse depth map, while the schedule's weight
+(``schedules.depth_l1_weight``) is above 0, passes the map, its mask and
+the weight to the step (``step.DepthTarget``: its own graph key); any
+other step has no depth term, as upstream's. The sharded step has none
+and refuses the target.
 """
 
 from __future__ import annotations
@@ -279,6 +287,7 @@ class Trainer:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.system.seed)
         self._cam_arrays = collections.OrderedDict()
+        self._cam_depths = collections.OrderedDict()
         self.densify_until = (self.opt_cfg.densify_until_iter +
                               self.rain.warmup_iter)  # train.py:38-39
         self.history = []
@@ -359,6 +368,39 @@ class Trainer:
             self._cam_arrays[cam.uid] = (cam.render_inputs(self.device), gt)
         return self._cam_arrays[cam.uid]
 
+    def _depth_maps(self, cam):
+        """(inverse depth, mask) of a camera as device tensors, zero-padded
+        to its bucket when bucketed; LRU-bounded as ``_camera_bundle``."""
+        if cam.uid in self._cam_depths:
+            self._cam_depths.move_to_end(cam.uid)
+        else:
+            limit = self.system.camera_cache
+            if limit and len(self._cam_depths) >= limit:
+                self._cam_depths.popitem(last=False)
+            maps = []
+            for arr in (cam.invdepthmap, cam.depth_mask):
+                if self._bucketed:
+                    bw = _round_up(cam.width, 16)
+                    bh = _round_up(cam.height, 16)
+                    padded = np.zeros((bh, bw), np.float32)
+                    padded[:cam.height, :cam.width] = arr
+                    arr = padded
+                maps.append(torch.from_numpy(
+                    np.array(arr, np.float32)).to(self.device))
+            self._cam_depths[cam.uid] = tuple(maps)
+        return self._cam_depths[cam.uid]
+
+    def _depth_target(self, cam, iteration: int):
+        """The step's DepthTarget at ``iteration``, or None: no depths
+        folder, no map, a map that is not reliable, or a weight of 0."""
+        if not self.model.depths or cam.invdepthmap is None or \
+                not cam.depth_reliable:
+            return None
+        weight = schedules.depth_l1_weight(iteration, self.opt_cfg)
+        if weight <= 0.0:
+            return None
+        return step_mod.DepthTarget(*self._depth_maps(cam), weight)
+
     def _next_camera(self):
         if not self._viewpoint_stack:
             self._viewpoint_stack = list(self.scene.train_cameras)
@@ -417,7 +459,7 @@ class Trainer:
         """Queue one train step without waiting for it. Returns (state,
         opt, flags) with flags a _Flags on its way to the host."""
         (cam, cam_arrays, gt, bg, low_pass, xyz_lr, sh_deg, opt_leaves,
-         update_stats) = args
+         update_stats, depth) = args
         # every per-call value a 0-d device tensor, as rain_tpu traces it
         # (rain_tpu/train/trainer.py:292-306): fills, which do not wait
         # for the device
@@ -440,7 +482,7 @@ class Trainer:
                 self._opt_leaves, width=cam.width, height=cam.height,
                 sh_degree=sh_deg, max_instances_per_shard=self.max_instances,
                 lambda_dssim=self.opt_cfg.lambda_dssim,
-                update_densify_stats=update_stats)
+                update_densify_stats=update_stats, depth=depth)
             return state._replace(n_alive=n_alive), opt, _Flags(aux)
         if self._bucketed:
             width = _round_up(cam.width, 16)
@@ -456,7 +498,7 @@ class Trainer:
             max_instances=self.max_instances,
             opt_cfg_leaves=self._opt_leaves,
             lambda_dssim=self.opt_cfg.lambda_dssim,
-            update_densify_stats=update_stats, real_wh=real_wh)
+            update_densify_stats=update_stats, real_wh=real_wh, depth=depth)
         return state._replace(n_alive=n_alive), opt, _Flags(aux)
 
     def _enqueue_step(self, args):
@@ -612,6 +654,7 @@ class Trainer:
             with self._span("camera"):
                 cam = self._next_camera()
                 cam_arrays, gt = self._camera_bundle(cam)
+                depth = self._depth_target(cam, iteration)
 
             with self._span("schedule"):
                 xyz_lr = schedules.xyz_lr_at(
@@ -639,7 +682,8 @@ class Trainer:
 
             in_densify = iteration < self.densify_until
             self._enqueue_step((cam, cam_arrays, gt, bg, self.low_pass,
-                                xyz_lr, sh_deg, opt_leaves, in_densify))
+                                xyz_lr, sh_deg, opt_leaves, in_densify,
+                                depth))
             if self.tb is not None:   # train.py:183 (per-iteration timing)
                 self.tb.add_scalar("iter_time",
                                    (time.time() - t_iter0) * 1000.0,

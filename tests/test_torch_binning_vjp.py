@@ -45,7 +45,7 @@ def test_sorted_pack_vjp_matches_jax(max_instances, need_depth):
     t10 = _t(table10).requires_grad_(True)
     tpack, total, overflow = tbin.sorted_pack(
         t10, _t(prep.tiles_touched), _t(prep.rect_min), _t(prep.rect_wh), 0,
-        GRID_X, N_TILES, max_instances, need_depth)
+        GRID_X, N_TILES, max_instances, "z" if need_depth else None)
     assert bool(overflow) == (int(total) > max_instances) == \
         (max_instances == 256)
     np.testing.assert_array_equal(tpack.detach().numpy(), np.asarray(pack))
@@ -71,7 +71,7 @@ def test_sorted_pack_vjp_keeps_f64(max_instances, need_depth, monkeypatch):
     ct = np.random.default_rng(3).standard_normal(
         (16, max_instances)).astype(np.float32)
     args = (_t(prep.tiles_touched), _t(prep.rect_min), _t(prep.rect_wh), 0,
-            GRID_X, N_TILES, max_instances, need_depth)
+            GRID_X, N_TILES, max_instances, "z" if need_depth else None)
 
     def run(dtype):
         t10 = _t(_table10(prep)).to(dtype).requires_grad_(True)

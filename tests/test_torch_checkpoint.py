@@ -180,19 +180,36 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 def _cfg_dict(cfgs):
-    return {k: dataclasses.asdict(v) for k, v in cfgs.items()}
+    """The groups as dicts, without the port's own fields (rain_tpu has
+    no depth regularization), which must hold their defaults."""
+    out = {}
+    for k, v in cfgs.items():
+        d = dataclasses.asdict(v)
+        for f in tcfg.PORT_ONLY.get(k, ()):
+            if f in d:
+                assert d.pop(f) == getattr(tcfg.GROUPS[k](), f), (k, f)
+        out[k] = d
+    return out
 
 
 def test_config_groups_and_defaults_equal():
+    """rain_tpu's groups, flags, defaults and shorthands, and beside them
+    the port's depth flags with upstream's defaults and shorthand."""
     assert list(tcfg.GROUPS) == list(jcfg.GROUPS)
     for name in jcfg.GROUPS:
+        own = tcfg.PORT_ONLY.get(name, ())
         jf = [(f.name, f.type, f.default)
               for f in dataclasses.fields(jcfg.GROUPS[name])]
         tf = [(f.name, f.type, f.default)
-              for f in dataclasses.fields(tcfg.GROUPS[name])]
+              for f in dataclasses.fields(tcfg.GROUPS[name])
+              if f.name not in own]
         assert tf == jf, name
-        assert set(getattr(tcfg.GROUPS[name], "SHORTHANDS", ())) == \
-            set(getattr(jcfg.GROUPS[name], "SHORTHANDS", ()))
+        assert set(getattr(tcfg.GROUPS[name], "SHORTHANDS", ())) - \
+            set(own) == set(getattr(jcfg.GROUPS[name], "SHORTHANDS", ()))
+    assert (tcfg.ModelParams().depths, tcfg.OptimizationParams()
+            .depth_l1_weight_init, tcfg.OptimizationParams()
+            .depth_l1_weight_final) == ("", 1.0, 0.01)
+    assert "depths" in tcfg.ModelParams.SHORTHANDS
 
 
 @pytest.mark.parametrize("argv", [

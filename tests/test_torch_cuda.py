@@ -185,6 +185,82 @@ def test_b2_writes_every_element_of_its_output(cuda):
                 d, exc, tiles))
 
 
+# --- depth regularization: B4's depth variant, B2 at ten rows -------------
+
+def _depth_target(device, k=0, bucket=None):
+    """A target inverse depth in [1/8, 1/2], a mask of ones (zero past the
+    true size in a bucket) and a weight, unlike for each k."""
+    rng = np.random.default_rng(20 + k)
+    inv = torch.from_numpy(rng.uniform(0.125, 0.5, (H, W)).astype(
+        np.float32)).to(device)
+    mask = torch.ones((H, W), device=device)
+    if bucket is not None:
+        w, h = (int(v) for v in bucket)
+        inv[h:] = 0.0
+        inv[:, w:] = 0.0
+        mask[h:] = 0.0
+        mask[:, w:] = 0.0
+    return step.DepthTarget(inv, mask, 1.0 - 0.01 * k)
+
+
+def _train_depth(device, state=None, seen=None):
+    if state is None:
+        state = _state(device)
+    if seen is None:
+        seen = {}
+    gt = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (3, H, W)).astype(np.float32)).to(device)
+    return step.train_step(
+        state, adam_mod.init(state.params), _camera(device), gt,
+        torch.zeros(3, device=device), 0.3, 1.6e-4, width=W, height=H,
+        sh_degree=3, max_instances=M, opt_cfg_leaves=OPT,
+        on_stage=seen.__setitem__, depth=_depth_target(device))
+
+
+def test_depth_backward_kernels_match_plain_versions(cuda):
+    """A depth-regularized step: B2 at ten rows and B4's depth variant
+    equal their plain versions bit for bit on the step's inputs, the
+    tenth row is live, and B4 writes every element of its output."""
+    seen = {}
+    _train_depth(cuda, seen=seen)
+    d_rank, exc, tiles, d_depth = seen["reduce_B2"]
+    assert d_rank.shape[0] == tile_render.DEPTH_GRAD_ROWS
+    want = expand_ops.reduce_instances_torch(d_rank, exc, tiles)
+    assert torch.equal(d_depth.view(torch.int32), want.view(torch.int32))
+    assert float(want[tile_render.ROW_DEPTH].abs().max()) > 0.0
+    args, d_pack = seen["composite_bwd_B4"]
+    want = tile_render.composite_backward_torch(*args, depth=True)
+    assert torch.equal(d_pack.view(torch.int32), want.view(torch.int32))
+    assert float(d_pack[tile_render.ROW_DEPTH].abs().max()) > 0.0
+    assert torch.all(d_pack[tile_render.DEPTH_GRAD_ROWS:] == 0.0)
+    for _ in range(3):
+        junk = torch.full_like(d_pack, float("nan"))
+        del junk
+        again = tile_render.composite_backward(*args, depth=True)
+        assert torch.equal(again.view(torch.int32), d_pack.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", REDUCE_CASES)
+def test_b2_at_ten_rows_matches_plain_version(cuda, case):
+    d, exc, tiles = (a.to(cuda) for a in reduce_case(case, 3000, 16_384))
+    d = torch.cat([d, -0.5 * d[:1]]).contiguous()
+    got = expand_ops.reduce_instances(d, exc, tiles)
+    want = expand_ops.reduce_instances_torch(d, exc, tiles)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_depth_step_on_card_matches_cpu(cuda):
+    sc, oc, ac = _train_depth(cuda)
+    sh, oh, ah = _train_depth("cpu")
+    torch.testing.assert_close(ac.loss.cpu(), ah.loss, rtol=1e-5, atol=0.0)
+    assert int(ac.num_instances) == int(ah.num_instances) > 0
+    err = (ac.inv_depth.cpu() - ah.inv_depth).abs().max()
+    assert float(err) <= 1e-5 * float(ah.inv_depth.abs().max())
+    for mc, mh in zip(oc.mu, oh.mu):
+        err = (mc.cpu() - mh).abs().max()
+        assert float(err) <= 1e-4 * float(mh.abs().max())
+
+
 # --- the SSIM map's kernels SF and SB (ops/losses.py, csrc/ssim.cu) --------
 
 # 1297x840, its 1312x848 bucket, a band of the four-rank layout at
@@ -778,7 +854,8 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
         want = step.train_step(*args, **kw)
         n0 = _launches()
         got = steps.train_step(*args, **kw)
-        assert [b - a for a, b in zip(n0, _launches())] == [1] * 9
+        # one each, B4's depth variant none
+        assert [b - a for a, b in zip(n0, _launches())] == [1] * 8 + [0, 1]
         for a, b in zip(_tensors(got), _tensors(want)):
             assert torch.equal(a, b)
         assert all(torch.equal(a, b) for a, b in zip(before, given))
@@ -787,6 +864,38 @@ def test_compiled_train_step_replays_equal_eager(cuda, bucketed):
     # update_densify_stats False at step 3 is its own key
     assert len(steps.captures) == 2 and len(steps.graphs) == 2
     assert float(got[2].loss) > 0.0 and not bool(got[2].instance_overflow)
+
+
+@pytest.mark.parametrize("bucketed", [False, True])
+def test_compiled_depth_step_replays_equal_eager(cuda, bucketed):
+    """Four chained depth-regularized steps, the first captured into a
+    DepthTrainKey's graph: each replay, on inputs and a weight unlike the
+    capture's, equals the eager step bit for bit, its inverse depth
+    included; B4 and its depth variant count one launch per call."""
+    steps = compiled.CompiledStep()
+    state = _state(cuda)
+    opt = adam_mod.init(state.params)
+    for k in range(4):
+        x = _step_inputs(cuda, k, bucketed)
+        st = state._replace(n_alive=x["n_alive"])
+        args = (st, opt, x["camera"], x["gt"], x["bg"], x["low_pass"],
+                x["xyz_lr"])
+        kw = dict(width=W, height=H, sh_degree=3, max_instances=M,
+                  opt_cfg_leaves=OPT, real_wh=x["real_wh"],
+                  depth=_depth_target(cuda, k, x["real_wh"]))
+        want = step.train_step(*args, **kw)
+        b4 = tile_render.composite_backward
+        n0 = (b4.launches, b4.launches_depth)
+        got = steps.train_step(*args, **kw)
+        assert (b4.launches - n0[0], b4.launches_depth - n0[1]) == (1, 1)
+        for a, b in zip(_tensors(got), _tensors(want)):
+            assert torch.equal(a, b)
+        assert torch.equal(got[2].inv_depth, want[2].inv_depth)
+        state, opt = got[0], got[1]
+    key, = steps.train_keys
+    assert isinstance(key, compiled.DepthTrainKey) and key.bucketed == \
+        bucketed
+    assert len(steps.captures) == 1
 
 
 def test_no_cyclic_collection_runs_inside_a_capture(cuda):
@@ -828,7 +937,7 @@ def test_compiled_eval_render_replays_equal_eager(cuda):
                                 **kw)
         # B1, B3 and preprocess's forward; the render runs no SSIM, no Adam
         assert [b - a for a, b in zip(n0, _launches())] == \
-            [1, 0, 1, 0, 1, 0, 0, 0, 0]
+            [1, 0, 1, 0, 1, 0, 0, 0, 0, 0]
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.num_instances) > 0
@@ -1257,4 +1366,4 @@ def test_captured_sharded_step_replays_equal_eager_over_nccl(cuda):
         assert r["equal"] == [True] * 5, r
         assert (r["graphs"], r["captures"]) == (1, 1)
         # the sharded step preprocesses with plain ops (colors_override)
-        assert r["launches"] == [[1, 1, 1, 1, 0, 0, 1, 1, 1]] * 5
+        assert r["launches"] == [[1, 1, 1, 1, 0, 0, 1, 1, 0, 1]] * 5

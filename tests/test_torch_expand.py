@@ -133,7 +133,8 @@ def test_sorted_pack_matches_jax(max_instances, need_depth):
         need_depth)
     tpack, ttotal, tovf = tbin.sorted_pack(
         _t(table10), _t(prep.tiles_touched), _t(prep.rect_min),
-        _t(prep.rect_wh), 0, GRID_X, N_TILES, max_instances, need_depth)
+        _t(prep.rect_wh), 0, GRID_X, N_TILES, max_instances,
+        "z" if need_depth else None)
     assert tpack.shape == (16, max_instances)
     np.testing.assert_array_equal(tpack.numpy(), np.asarray(pack))
     assert int(ttotal) == int(total)

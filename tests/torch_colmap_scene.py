@@ -8,7 +8,9 @@ scene with ``write_colmap_scene`` and loads this file by path, so it
 imports numpy and the port only.
 """
 
+import json
 import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -88,3 +90,46 @@ def toy_scene(root, width=64, height=48, n_cams=6, n_pts=400, seed=7):
     err = rng.random(n_pts) * 2.0
     write_colmap_scene(root, views, width, height, 60.0, 60.0, xyz, rgb, err)
     return xyz, rgb, err
+
+
+def save_png16(path, raw):
+    """A 16-bit grey PNG of uint16 [H, W] ``raw`` (the format of upstream's
+    inverse depth maps), every row filter type 0."""
+    raw = np.asarray(raw, np.uint16)
+    h, w = raw.shape
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    rows = np.zeros((h, 1 + 2 * w), np.uint8)
+    rows[:, 1:] = raw.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n" +
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0)) +
+        chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) +
+        chunk(b"IEND", b""))
+
+
+def toy_depths(root, folder="depths", scales=(1.0, 1.2, 0.1, 0.9, 1.1, 1.0),
+               offsets=(0.05, -0.02, 0.0, 0.01, -0.3, 0.02), width=64,
+               height=48, seed=8):
+    """Inverse depth maps of the toy scene's views, ``<folder>/img_###.png``
+    (16-bit, seeded smooth ramps at half the images' size, so the loader
+    resizes them), and ``sparse/0/depth_params.json`` with each view's
+    scale and offset. Returns {image name: raw uint16 [h, w]}."""
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    (root / folder).mkdir(exist_ok=True)
+    h, w = height // 2, width // 2
+    raws, params = {}, {}
+    for i, (sc, off) in enumerate(zip(scales, offsets)):
+        name = f"img_{i:03d}"
+        ramp = np.linspace(0.1, 0.6, w)[None, :] + \
+            np.linspace(0.0, 0.3, h)[:, None] + rng.uniform(0, 0.02, (h, w))
+        raws[name] = np.round(ramp * 65535 / 0.95).astype(np.uint16)
+        save_png16(root / folder / f"{name}.png", raws[name])
+        params[name] = {"scale": sc, "offset": off}
+    (root / "sparse" / "0" / "depth_params.json").write_text(
+        json.dumps(params))
+    return raws

@@ -566,3 +566,30 @@ def run_band(case, toff, grid_x=6, n_rows=4, m=4096, plain=False,
     return {"cols": cols, "keys": keys, "pack": pack, "start": start,
             "end": end, "tiles": out,
             "d_pack": bwd(pack, start, end, toff, grid_x, out, g)}
+
+
+def sharded_refuses_depth(rank, device, arrays, n_alive, tier):
+    """The messages of the ValueErrors that the sharded step and the
+    compiled step's sharded_train_step raise on a depth target."""
+    from rain_tpu_torch.train import compiled
+    from rain_tpu_torch.train import step as step_mod
+    state, opt, cam, gt, bg = step_inputs(arrays, n_alive, device)
+    world = distributed.world_size()
+    s = sharding.shard_state(state, rank, world)
+    o = sharding.shard_opt(opt, rank, world)
+    depth = step_mod.DepthTarget(torch.ones((H, W)), torch.ones((H, W)),
+                                 1.0)
+    kw = dict(width=W, height=H, sh_degree=3, max_instances_per_shard=tier)
+    msgs = []
+    for call in (
+            lambda: sharding.make_sharded_train_step(**kw)(
+                s, o, cam, gt, bg, LOW_PASS, XYZ_LR, OPT_LEAVES,
+                depth=depth),
+            lambda: compiled.CompiledStep().sharded_train_step(
+                s, o, cam, gt, bg, LOW_PASS, XYZ_LR, OPT_LEAVES,
+                depth=depth, **kw)):
+        try:
+            call()
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs
